@@ -1,0 +1,122 @@
+"""PaliGemma: SigLIP tower + projector + Gemma decoder (port of
+``paligemma_tpu/models/paligemma.py``, the prefill/decode path).
+
+- The projector is one biased linear, vision_hidden -> projection_dim; image
+  features are scaled by 1/sqrt(hidden) to cancel the decoder's sqrt(hidden)
+  embedding scale.
+- The processor emits image tokens as a fixed-length prefix, so the merge is
+  a concat; only ``input_ids[:, n_img:]`` is embedded (the image token id may
+  lie outside the embedding table, and ``F.embedding`` raises where
+  ``jnp.take`` clamps).
+- Prefill positions are 0..T-1; a decode step sits at position = cache length.
+
+Every function takes ``attn``, the attention functions to run; the default
+dispatches to the CUDA kernels on a CUDA tensor (``ops.cuda_attention``).
+"""
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+from torch import nn
+
+from paligemma_tpu_torch.config import PaliGemmaConfig
+from paligemma_tpu_torch.models import gemma, siglip
+from paligemma_tpu_torch.models.gemma import GemmaModel, KVCache, RMSNorm
+from paligemma_tpu_torch.models.siglip import LayerNorm, SiglipVisionModel, linear
+from paligemma_tpu_torch.ops.cuda_attention import KERNELS, AttentionFns
+
+
+class PaliGemma(nn.Module):
+    def __init__(self, cfg: PaliGemmaConfig, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.vision = SiglipVisionModel(cfg.vision_config, dtype)
+        self.projector = nn.Linear(cfg.vision_config.hidden_size, cfg.projection_dim, dtype=dtype)
+        self.llm = GemmaModel(cfg.text_config, dtype)
+
+
+def empty_model(cfg: PaliGemmaConfig, device, dtype: torch.dtype) -> PaliGemma:
+    """A PaliGemma with uninitialized storage on ``device`` (no init pass)."""
+    with torch.device("meta"):
+        model = PaliGemma(cfg, dtype)
+    return model.to_empty(device=device).requires_grad_(False)
+
+
+def init_params(
+    cfg: PaliGemmaConfig,
+    generator: Union[int, torch.Generator],
+    device="cpu",
+    dtype: torch.dtype = torch.float32,
+) -> PaliGemma:
+    """Random weights made on ``device`` from a seed or generator, with the
+    reference's scheme: linear weights and embeddings ~ N(0, 1/fan_in),
+    biases 0, LayerNorm scale 1, RMSNorm weight 0 (it scales by 1 + w)."""
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=device).manual_seed(int(generator))
+    model = empty_model(cfg, device, dtype)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.normal_(0.0, mod.in_features**-0.5, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, RMSNorm):
+                mod.weight.zero_()
+        for emb in (model.vision.position_embedding, model.llm.embed):
+            emb.normal_(0.0, emb.shape[-1] ** -0.5, generator=generator)
+    return model
+
+
+def encode_image(
+    model: PaliGemma, pixel_values: torch.Tensor, attn: AttentionFns = KERNELS
+) -> torch.Tensor:
+    """(B, C, H, W) -> (B, N_img, hidden): vision tower, projector, 1/sqrt(hidden)."""
+    feats = siglip.apply(model.vision, pixel_values, attn)
+    proj = linear(feats, model.projector)
+    return proj / torch.tensor(model.cfg.hidden_size**0.5, dtype=proj.dtype)
+
+
+def merge_prefix(
+    model: PaliGemma, input_ids: torch.Tensor, image_features: torch.Tensor
+) -> torch.Tensor:
+    """Image features at positions [0, N_img), text embeddings after them."""
+    n_img = image_features.shape[1]
+    text_embeds = gemma.embed_tokens(model.llm, input_ids[:, n_img:])
+    return torch.cat([image_features.to(text_embeds.dtype), text_embeds], dim=1)
+
+
+def prefill(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    cache: KVCache,
+    full_logits: bool = True,
+    attn: AttentionFns = KERNELS,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Image + templated prompt -> fp32 logits (B, T or 1, V) + the warm cache.
+
+    ``full_logits=False`` computes the lm_head for the last position only.
+    """
+    b, t = input_ids.shape
+    embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, attn))
+    positions = torch.arange(t, dtype=torch.int32, device=input_ids.device).expand(b, t)
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, attn)
+    if not full_logits:
+        hidden = hidden[:, -1:, :]
+    return gemma.logits(model.llm, hidden), cache
+
+
+def decode_step(
+    model: PaliGemma, token: torch.Tensor, cache: KVCache, attn: AttentionFns = KERNELS
+) -> Tuple[torch.Tensor, KVCache]:
+    """One step: (B, 1) token -> (B, 1, V) fp32 logits; the cache advances by one."""
+    positions = torch.full(
+        (token.shape[0], 1), cache.length, dtype=torch.int32, device=token.device
+    )
+    embeds = gemma.embed_tokens(model.llm, token)
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, attn)
+    return gemma.logits(model.llm, hidden), cache

@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels of ``paligemma_tpu_torch/csrc``.
+
+The ``.cu`` sources are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
+one shared library with a plain C interface, loaded with ``ctypes``. Nothing
+includes PyTorch's headers, so a build takes seconds. The library lands in
+``paligemma_tpu_torch/_build/<hash of the sources>/`` (listed in
+``.gitignore``) at first use; a changed source or flag gets a new directory. A
+missing ``nvcc`` or a failed build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+LIB_NAME = "libpaligemma_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# argtypes of every exported function; pointers and the stream are c_void_p
+# so that ctypes never truncates them to 32 bits.
+_SIGNATURES = {
+    "pg_flash_attention": [_ptr] * 5 + [_int] * 6 + [_ll] * 9 + [_int, _int, _float, _ptr],
+    "pg_decode_attention": [_ptr] * 8 + [_int] * 6 + [_ll] * 8 + [_int, _int, _float, _ptr],
+}
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def source_hash() -> str:
+    """Hash of the nvcc flags and every source, so either change rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh"))):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / source_hash() / LIB_NAME
+
+
+def find_nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for cand in candidates:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor under CUDA_HOME): the CUDA "
+        "kernels of paligemma_tpu_torch cannot be built"
+    )
+
+
+def nvcc_command(out_path: Path, nvcc: str = "nvcc") -> List[str]:
+    """The nvcc command line that builds every source into ``out_path``."""
+    return [nvcc, *NVCC_FLAGS, "-o", str(out_path), *map(str, sources())]
+
+
+def build() -> Path:
+    """Compile the kernels unless this source hash is already built; return
+    the library path. The library is written under a temporary name and
+    renamed, so a concurrent or interrupted build never leaves half a file."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            nvcc_command(Path(tmp), find_nvcc()), capture_output=True, text=True
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the kernel library (once per process)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.pg_error_string.argtypes = [ctypes.c_int]
+    lib.pg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.pg_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")

@@ -1,0 +1,268 @@
+"""Flash and decode attention: hand-written CUDA kernels and their plain versions.
+
+Port of ``paligemma_tpu/ops/pallas_attention.py``. Each public function
+dispatches on the device of its query tensor:
+
+- a CPU tensor takes the plain PyTorch version beside it (``*_plain``),
+- a CUDA tensor launches the kernel from ``paligemma_tpu_torch/csrc`` or
+  raises; there is no fallback.
+
+Each wrapper counts its kernel launches in its ``launches`` attribute, so a
+run can show that it went through the kernels (``reset_launch_counts``).
+
+The plain versions compute what the kernels compute, unblocked: fp32 scores
+times ``scale``, invisible positions set to ``NEG_INF``, and
+
+- flash: unnormalized ``P`` (masked entries zeroed) rounded to the value
+  dtype, fp32 ``P @ V``, then divided by the fp32 row sum;
+- decode: ``P`` normalized first, then rounded to the value dtype, then
+  fp32 ``P @ V``.
+
+Visibility follows ``ops.attention.LengthMask``: batch row ``b`` sees kv
+positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from paligemma_tpu_torch.ops import _build
+from paligemma_tpu_torch.ops.attention import MASK_VALUE as NEG_INF
+from paligemma_tpu_torch.ops.attention import LengthMask
+
+MAX_HEAD_DIM = 256
+DECODE_CHUNK = 32  # cache positions per block of the decode kernel
+
+ValidLen = Optional[Union[int, torch.Tensor]]
+Window = Optional[Union[int, torch.Tensor]]
+
+
+def _window(gen_start: Window, gen_end: Window) -> Tuple[int, int]:
+    """The shared window as host ints (a CUDA tensor would need a sync)."""
+    out = []
+    for x in (gen_start, gen_end):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu":
+                raise TypeError("gen_start/gen_end must be host ints or CPU tensors")
+            x = int(x)
+        out.append(0 if x is None else int(x))
+    return out[0], out[1]
+
+
+def _valid(valid_len: ValidLen, b: int, s_len: int, device) -> torch.Tensor:
+    """(B,) int32 visible-prefix lengths on ``device``."""
+    if valid_len is None:
+        return torch.full((b,), s_len, dtype=torch.int32, device=device)
+    valid = torch.as_tensor(valid_len, dtype=torch.int32, device=device).reshape(-1)
+    if valid.shape[0] == 1 and b > 1:
+        valid = valid.expand(b)
+    if valid.shape[0] != b:
+        raise ValueError(f"valid_len has {valid.shape[0]} rows for batch {b}")
+    return valid.contiguous()
+
+
+def _masked_scores(
+    q: torch.Tensor, k: torch.Tensor, valid_len: ValidLen, scale: Optional[float],
+    gen_start: Window, gen_end: Window,
+) -> torch.Tensor:
+    """fp32 grouped scores (B, Hkv, G, T, S) times ``scale``; the additive
+    ``LengthMask`` puts every invisible position at exactly ``NEG_INF``."""
+    b, t, h, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    scale = d**-0.5 if scale is None else scale
+    valid = _valid(valid_len, b, s_len, q.device)
+    mask = LengthMask(valid, *_window(gen_start, gen_end)).materialize(s_len)
+    qg = q.reshape(b, t, hkv, h // hkv, d)
+    return torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale + mask
+
+
+def _apply_pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """fp32 (B, T, H, D) from probabilities (B, Hkv, G, T, S) rounded to v.dtype."""
+    b, hkv, g, t, _ = p.shape
+    acc = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(), v.float())
+    return acc.reshape(b, t, hkv * g, -1)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (SigLIP, Gemma prefill)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len: ValidLen = None,
+    scale: Optional[float] = None,
+    gen_start: Window = None,
+    gen_end: Window = None,
+) -> torch.Tensor:
+    """Plain version of ``flash_attention`` (any device)."""
+    b, t, h, _ = q.shape
+    s = _masked_scores(q, k, valid_len, scale, gen_start, gen_end)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)  # (B, Hkv, G, T, 1)
+    acc = _apply_pv(p, v)
+    l = l.permute(0, 3, 1, 2, 4).reshape(b, t, h, 1)
+    return (acc / l).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_len: ValidLen = None,
+    scale: Optional[float] = None,
+    gen_start: Window = None,
+    gen_end: Window = None,
+) -> torch.Tensor:
+    """Bidirectional (prefix-LM) attention with GQA.
+
+    q: (B, T, H, D); k, v: (B, S, Hkv, D) with H % Hkv == 0. ``valid_len``:
+    None, an int or a (B,) int tensor. Returns (B, T, H, D) in q.dtype.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, valid_len, scale, gen_start, gen_end)
+    b, t, h, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    _check_cuda("flash_attention", q, k, v, h, hkv, d)
+    if v.shape != k.shape or k.shape[0] != b or t < 1 or s_len < 1:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    scale = d**-0.5 if scale is None else scale
+    win = _window(gen_start, gen_end)
+    valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    rc = lib.pg_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if valid is None else valid.data_ptr(),
+        b, t, s_len, h, hkv, d,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        win[0], win[1], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, "flash_attention", rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (one query against the KV cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    valid_len: ValidLen,
+    scale: Optional[float] = None,
+    gen_start: Window = None,
+    gen_end: Window = None,
+) -> torch.Tensor:
+    """Plain version of ``decode_attention`` (any device)."""
+    s = _masked_scores(q, k_cache, valid_len, scale, gen_start, gen_end)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return _apply_pv(p, v_cache).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    valid_len: ValidLen,
+    scale: Optional[float] = None,
+    gen_start: Window = None,
+    gen_end: Window = None,
+) -> torch.Tensor:
+    """Single-token GQA attention against the preallocated cache.
+
+    q: (B, 1, H, D) this step's queries (RoPE applied); k_cache, v_cache:
+    (B, S, Hkv, D), typically one layer's view of the (L, B, S, Hkv, D)
+    cache, read through their strides. Returns (B, 1, H, D) in q.dtype.
+    """
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, valid_len, scale, gen_start, gen_end)
+    b, t, h, d = q.shape
+    s_len, hkv = k_cache.shape[1], k_cache.shape[2]
+    _check_cuda("decode_attention", q, k_cache, v_cache, h, hkv, d)
+    if t != 1 or v_cache.shape != k_cache.shape or k_cache.shape[0] != b or s_len < 1:
+        raise ValueError(
+            f"decode_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
+        )
+    if (h // hkv) * (d + DECODE_CHUNK) * 4 > 48 * 1024:
+        raise ValueError("decode_attention: the query group does not fit shared memory")
+    scale = d**-0.5 if scale is None else scale
+    win = _window(gen_start, gen_end)
+    valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
+    n_chunks = -(-s_len // DECODE_CHUNK)
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    scores = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    stats = torch.empty((n_chunks, b, h, 2), dtype=torch.float32, device=q.device)
+    partial = torch.empty((n_chunks, b, h, d), dtype=torch.float32, device=q.device)
+    lib = _build.load_library()
+    rc = lib.pg_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        None if valid is None else valid.data_ptr(),
+        scores.data_ptr(), stats.data_ptr(), partial.data_ptr(),
+        b, s_len, h, hkv, d, DECODE_CHUNK,
+        q.stride(0), q.stride(2),
+        k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        win[0], win[1], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, "decode_attention", rc)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def _check_cuda(name: str, q, k, v, h: int, hkv: int, d: int) -> None:
+    """Raise on any input the CUDA kernels do not take."""
+    for x in (q, k, v):
+        if x.device.type != "cuda" or x.device != q.device:
+            raise ValueError(f"{name}: tensors must share one CUDA device")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bf16, got {x.dtype}")
+        if x.dim() != 4 or x.stride(-1) != 1:
+            raise ValueError(f"{name}: 4-d tensors with a unit stride on head_dim required")
+        # 16-byte vector loads of 8 bf16 values along head_dim.
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(f"{name}: rows must be 16-byte aligned (strides a multiple of 8)")
+    if k.shape[3] != d or d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} must be a multiple of 8 in [8, {MAX_HEAD_DIM}]")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"{name}: {h} query heads do not group over {hkv} kv heads")
+
+
+class AttentionFns(NamedTuple):
+    """The attention functions a model runs: ``flash`` for SigLIP and prefill,
+    ``decode`` for one token against the cache."""
+
+    flash: Callable[..., torch.Tensor]
+    decode: Callable[..., torch.Tensor]
+
+
+KERNELS = AttentionFns(flash_attention, decode_attention)
+PLAIN = AttentionFns(flash_attention_plain, decode_attention_plain)
+
+
+def launch_counts() -> dict:
+    return {
+        "flash_attention": flash_attention.launches,
+        "decode_attention": decode_attention.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    flash_attention.launches = 0
+    decode_attention.launches = 0
