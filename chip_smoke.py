@@ -12,26 +12,38 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    card, in bf16, at the main-path shapes, at the 896-px preset's lengths
    (SigLIP T=S=4096, prefill T=S=4110, a 4128-position cache), and at edge
    cases (batch 2 with per-row valid lengths and a window, ragged T/S, fully
-   masked tiles, poisoned K/V past the valid length, head_dim 72).
+   masked tiles, poisoned K/V past the valid length, head_dim 72). The int8
+   and w4a8 kernels (q8_matmul, w4a8_gemv, quant_rows and the mlp_w4a8 they
+   make up) at every decode shape of the 3B model, at 64 and 276 rows, at
+   the flat q4a8_matmul shapes, and at ragged rows and widths.
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
    weights made on the card, the byte-tokenizer processor, and three
    requests answered by ``generation.generate`` (32 new tokens each), with
    the kernels' launch counts, prefill ms and decode ms/token per request;
    then the first request's decode again as one ``decode_steps`` chunk,
-   which must give the same tokens; and the peak device memory.
+   which must give the same tokens; and the peak device memory. Then the
+   model is quantized on the card in each serving arm (int8, w4a8, w4a8 with
+   the 4-bit lm_head) and the first request is answered again in each, with
+   every kernel's launch count held to the count the code implies.
 5. Kernel path vs plain path: the first request again with the plain
-   attention functions; the prefill's last-position logits must agree within
-   the stated tolerance and the first greedy token must be identical.
+   kernel functions, in bf16 and in each quantized arm; the prefill's
+   last-position logits must agree within the stated tolerance and the
+   first greedy token must be identical.
 6. Timing: the device time per call of each kernel and its plain version at
    the main-path shapes (CUDA events around CUDA-graph replays, so host
-   dispatch is not timed).
+   dispatch is not timed), beside its bound (the larger of its bytes over
+   the card's memory rate and its operations over the peak rate of their
+   type) and the time of one PyTorch call that computes the same function,
+   where there is one (never called by the port).
 
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -53,6 +65,16 @@ KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 2e-3
 # per-call differences pass through 45 residual layers in bf16; the bar is
 # 2% of the largest logit magnitude (a bf16 value carries 2^-8 = 0.4%).
 LOGIT_REL_TOL = 0.02
+# The quantized serving arms: (name, quantize_params mode, lm_head_w4).
+QUANT_ARMS = [("int8", "int8", False), ("w4a8", "w4a8", False), ("w4a8+lm_head_w4", "w4a8", True)]
+# The card's published peaks (H100 SXM data sheet, dense, at 700 W) for the
+# bound of each timed call.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# A timed call whose weights would fit in the 50 MB L2 cycles through enough
+# copies of them to stream this many bytes, as a decode step streams every
+# layer's weights in turn.
+L2_FLUSH_BYTES = 100e6
 
 
 def log(msg: str) -> None:
@@ -168,21 +190,131 @@ def phase_kernels(torch):
     return max_err
 
 
+def phase_quant_kernels(torch):
+    """The int8 and w4a8 kernels against their plain versions; returns max
+    errors per kernel (quant_rows: in quantization steps)."""
+    from paligemma_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    max_err = {"q8_matmul": 0.0, "w4a8_gemv": 0.0, "quant_rows": 0.0, "mlp_w4a8": 0.0}
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+
+    def scales(o, d, q_std):
+        """Per-row scales that give outputs of about unit size."""
+        return (torch.rand(o, generator=gen, device=dev) + 0.5) / (q_std * math.sqrt(d))
+
+    def held(kind, name, got, ref):
+        torch.cuda.synchronize()
+        err, ok = _close(torch, got, ref)
+        log(f"[kernel] {kind:16s} {name:44s} max_abs_err {err:.3e} | bit-identical {torch.equal(got, ref)}")
+        check(ok, f"{kind} {name}: kernel disagrees with its plain version")
+        max_err[kind] = max(max_err[kind], err)
+
+    q8_cases = [
+        # name, m, o, d, fp32 out
+        ("decode qkv M=1 O=2560 D=2048", 1, 2560, 2048, False),
+        ("decode o M=1 O=2048 D=2048", 1, 2048, 2048, False),
+        ("decode gate_up M=1 O=32768 D=2048", 1, 32768, 2048, False),
+        ("decode down M=1 O=2048 D=16384", 1, 2048, 16384, False),
+        ("decode lm_head M=1 O=257152 D=2048 fp32", 1, 257152, 2048, True),
+        ("GEMV M=64 O=2560 D=2048", 64, 2560, 2048, False),
+        ("GEMV M=9 O=2048 D=16384 (passes over D)", 9, 2048, 16384, False),
+        ("prefill GEMM M=276 O=32768 D=2048", 276, 32768, 2048, False),
+        ("prefill GEMM M=276 O=2048 D=16384", 276, 2048, 16384, False),
+        ("GEMM M=276 O=2560 D=2048 fp32", 276, 2560, 2048, True),
+        ("siglip fc1 GEMM M=256 O=4304 D=1152", 256, 4304, 1152, False),
+        ("ragged GEMV M=3 O=1000 D=336", 3, 1000, 336, False),
+        ("ragged GEMM M=130 O=200 D=48", 130, 200, 48, False),
+    ]
+    for name, m, o, d, f32 in q8_cases:
+        x, q = _rand(torch, gen, (m, d), dev), ints((o, d), -127, 128)
+        s = scales(o, d, 73.0)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        held("q8_matmul", name, quant.q8_matmul(x, q, s, out_dtype), quant.q8_matmul_plain(x, q, s, out_dtype))
+    # Rows with a stride (a column slice of a wider tensor, as a last-position
+    # slice of the hidden states is).
+    wide = _rand(torch, gen, (5, 512), dev)
+    q, s = ints((300, 256), -127, 128), scales(300, 256, 73.0)
+    held("q8_matmul", "strided rows M=5 O=300 D=256 (stride 512)",
+         quant.q8_matmul(wide[:, 128:384], q, s), quant.q8_matmul_plain(wide[:, 128:384], q, s))
+
+    rows_cases = [
+        # name, m, width, GeGLU prologue
+        ("decode mlp input M=1 D=2048", 1, 2048, False),
+        ("decode GeGLU M=1 2I=32768", 1, 32768, True),
+        ("GeGLU M=64 2I=32768", 64, 32768, True),
+        ("prefill rows M=276 D=2048", 276, 2048, False),
+        ("ragged M=70 D=200", 70, 200, False),
+        ("ragged GeGLU M=3 2I=80", 3, 80, True),
+    ]
+    for name, m, width, geglu in rows_cases:
+        x = _rand(torch, gen, (m, width), dev)
+        x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device=dev)  # exact ties at xs = 1
+        xq, xs = quant.quant_rows(x, geglu)
+        pq, ps = quant.quant_rows_plain(x, geglu)
+        torch.cuda.synchronize()
+        steps = int((xq.int() - pq.int()).abs().max())
+        # Exact integer stages: the same scales to the bit and the same int8
+        # values, but for the GeGLU prologue, whose fp32 tanh may differ from
+        # PyTorch's by an ulp and move one value across a rounding step.
+        ok = torch.equal(xs, ps) and steps <= (1 if geglu else 0)
+        log(f"[kernel] {'quant_rows':16s} {name:44s} max step diff {steps} | scales identical "
+            f"{torch.equal(xs, ps)}")
+        check(ok, f"quant_rows {name}: kernel disagrees with its plain version")
+        max_err["quant_rows"] = max(max_err["quant_rows"], steps)
+
+    w4_cases = [
+        # name, m, o, d, fp32 out
+        ("decode gate_up M=1 O=32768 D=2048", 1, 32768, 2048, False),
+        ("decode down M=1 O=2048 D=16384", 1, 2048, 16384, False),
+        ("decode lm_head M=1 O=257152 D=2048 fp32", 1, 257152, 2048, True),
+        ("GEMV M=64 O=32768 D=2048", 64, 32768, 2048, False),
+        ("GEMV M=13 O=2048 D=16384 (passes over D)", 13, 2048, 16384, False),
+        ("ragged M=7 O=1000 D=96", 7, 1000, 96, False),
+        ("M=100 O=520 D=64 (13 row blocks)", 100, 520, 64, False),
+    ]
+    for name, m, o, d, f32 in w4_cases:
+        xq, xs = ints((m, d), -127, 128), torch.rand(m, generator=gen, device=dev) * 0.02 + 1e-3
+        packed, s = quant.pack_int4(ints((o, d), -7, 8)), scales(o, d, 4.3 * 73.0 * 0.02)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        held("w4a8_gemv", name, quant.w4a8_gemv(xq, xs, packed, s, out_dtype),
+             quant.w4a8_gemv_plain(xq, xs, packed, s, out_dtype))
+    # The flat TPU layout's kernel (q4a8_matmul) at its benchmark shapes: the
+    # port serves it with the one w4a8 layout.
+    for name, o in (("q4a8 flat qkv M=1 O=2560 D=2048", 2560), ("q4a8 flat gate_up M=1 O=32768 D=2048", 32768)):
+        x = _rand(torch, gen, (1, 1, 2048), dev)
+        packed, s = quant.pack_int4(ints((o, 2048), -7, 8)), scales(o, 2048, 4.3)
+        held("w4a8_gemv", name, quant.q4a8_matmul(x, packed, s), quant.q4a8_matmul_plain(x, packed, s))
+
+    d, inter = 2048, 16384
+    gu, gs = quant.pack_int4(ints((2 * inter, d), -7, 8)), scales(2 * inter, d, 4.3)
+    dn, ds = quant.pack_int4(ints((d, inter), -7, 8)), scales(d, inter, 4.3 * 0.7)
+    for m in (1, 5, 64):
+        x = _rand(torch, gen, (1, m, d), dev)
+        held("mlp_w4a8", f"3B MLP M={m} D=2048 I=16384", quant.mlp_w4a8(x, gu, gs, dn, ds),
+             quant.mlp_w4a8_plain(x, gu, gs, dn, ds))
+    return max_err
+
+
 def _time_ms(torch, fn, iters=20, replays=5):
-    """Device ms per call: ``iters`` calls captured in one CUDA graph, the
-    graph replayed ``replays`` times between two CUDA events. Host dispatch
-    is outside the window (a loop of eager calls would time the host for a
-    call that runs in microseconds)."""
+    """Device ms per call: ``fn(0) .. fn(iters - 1)`` captured in one CUDA
+    graph, the graph replayed ``replays`` times between two CUDA events. Host
+    dispatch is outside the window (a loop of eager calls would time the host
+    for a call that runs in microseconds). ``fn(i)`` may pick the i-th of
+    several weight copies, so that a call finds its weights outside L2."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):  # warm-up outside the capture
-            fn()
+        for i in range(3):  # warm-up outside the capture
+            fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fn(i)
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -193,89 +325,308 @@ def _time_ms(torch, fn, iters=20, replays=5):
     return start.elapsed_time(end) / (iters * replays)
 
 
+def _bound(nbytes: float, ops: float, kind: str):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _copies(make, nbytes):
+    """Enough copies of the tensors ``make()`` returns to stream L2_FLUSH_BYTES."""
+    return [make() for _ in range(min(20, max(1, math.ceil(L2_FLUSH_BYTES / nbytes))))]
+
+
+def _time_rows(torch, kind, rows, library=None):
+    """Times each row in turns (plain, kernel, kernel, plain) and the
+    library call (named by ``library``); returns the kernel's record for the
+    kernels line: means per launch weighted by the main path's calls per
+    token (or request)."""
+    log(f"[time] {kind:16s} library call: {library or 'none'}")
+    by_shape, tot = [], collections.Counter()
+    for label, weight, kfn, pfn, lfn, (nbytes, ops, op_kind) in rows:
+        p1, k1, k2, p2 = (_time_ms(torch, f) for f in (pfn, kfn, kfn, pfn))
+        km, pm = (k1 + k2) / 2, (p1 + p2) / 2
+        lm = None if lfn is None else _time_ms(torch, lfn)
+        bound, bound_by = _bound(nbytes, ops, op_kind)
+        lib = "none" if lm is None else f"{lm:.4f}"
+        log(f"[time] {kind:16s} {label:52s} device ms/call: kernel {km:.4f} | plain {pm:.4f} | "
+            f"library {lib} | bound {bound:.4f} ({bound_by}) "
+            f"(turns: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})")
+        by_shape.append({"shape": label, "ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bound,
+                         "bound_by": bound_by, "calls_per_main_path_unit": weight})
+        if weight:
+            tot["n"] += weight
+            tot["ms"] += weight * km
+            tot["plain_ms"] += weight * pm
+            tot["bytes"] += weight * nbytes / HBM_BYTES_PER_S * 1e3
+            tot["ops"] += weight * ops / PEAK_OPS_PER_S[op_kind] * 1e3
+            tot["bound_ms"] += weight * bound
+            tot["lib_missing"] += lm is None
+            tot["library_ms"] += weight * (lm or 0.0)
+    n = tot["n"]
+    return {
+        "ms": tot["ms"] / n, "plain_ms": tot["plain_ms"] / n, "bound_ms": tot["bound_ms"] / n,
+        "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations",
+        "library_ms": None if tot["lib_missing"] else tot["library_ms"] / n,
+        "library": library, "by_shape": by_shape,
+    }
+
+
+def _attention_cost(b, t, s_len, h, hkv, d):
+    """(bytes, ops) of attention: q and out of T rows, K and V of S rows."""
+    return 2 * 2 * b * t * h * d + 2 * 2 * b * s_len * hkv * d, 4 * b * h * t * s_len * d
+
+
 def phase_timing(torch, prompt_len):
     """Device ms per call of kernel and plain version at the main-path
-    shapes, in turns (plain, kernel, kernel, plain); returns {kernel: {...}}."""
+    shapes, in turns (plain, kernel, kernel, plain), with each call's bound
+    and library time; returns {kernel: record}."""
+    import torch.nn.functional as F
+
     from paligemma_tpu_torch.ops import cuda_attention as ca
+    from paligemma_tpu_torch.ops import quant
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sdpa = F.scaled_dot_product_attention
+    result = {}
+
+    # --- attention (K/V resident in L2, as in every earlier run) ---
     fused_sig = _rand(torch, gen, (1, 256, 3 * 1152), dev)
     q_s, k_s, v_s = (x.view(1, 256, 16, 72) for x in fused_sig.split(1152, dim=-1))
+    sig_lib = [x.transpose(1, 2).contiguous() for x in (q_s, k_s, v_s)]
     fused_gem = _rand(torch, gen, (1, prompt_len, 2560), dev)
     q_g, k_g, v_g = fused_gem.split([2048, 256, 256], dim=-1)
     q_g, k_g, v_g = q_g.view(1, prompt_len, 8, 256), k_g.view(1, prompt_len, 1, 256), v_g.view(1, prompt_len, 1, 256)
+    # One KV head: the 8 query heads of a position are 8 more query rows of
+    # one head, so one SDPA call of one head computes the same function.
+    gem_lib = [q_g.reshape(1, 1, prompt_len * 8, 256), k_g.reshape(1, 1, prompt_len, 256),
+               v_g.reshape(1, 1, prompt_len, 256)]
+    result["flash_attention"] = _time_rows(torch, "flash_attention", [
+        ("siglip T=S=256 H=16 D=72", 27,
+         lambda i: ca.flash_attention(q_s, k_s, v_s, scale=72**-0.5),
+         lambda i: ca.flash_attention_plain(q_s, k_s, v_s, scale=72**-0.5),
+         lambda i: sdpa(*sig_lib, scale=72**-0.5), (*_attention_cost(1, 256, 256, 16, 16, 72), "bf16")),
+        (f"gemma prefill T=S={prompt_len} H=8 Hkv=1 D=256", 18,
+         lambda i: ca.flash_attention(q_g, k_g, v_g, scale=256**-0.5),
+         lambda i: ca.flash_attention_plain(q_g, k_g, v_g, scale=256**-0.5),
+         lambda i: sdpa(*gem_lib, scale=256**-0.5),
+         (*_attention_cost(1, prompt_len, prompt_len, 8, 1, 256), "bf16")),
+    ], library="F.scaled_dot_product_attention")
     s_main = prompt_len + MAX_NEW_TOKENS
-    shapes = {
-        "flash_attention": [
-            ("siglip T=S=256 H=16 D=72", 27, ca.flash_attention, ca.flash_attention_plain,
-             (q_s, k_s, v_s), {"scale": 72**-0.5}),
-            (f"gemma prefill T=S={prompt_len} H=8 Hkv=1 D=256", 18, ca.flash_attention,
-             ca.flash_attention_plain, (q_g, k_g, v_g), {"scale": 256**-0.5}),
-        ],
-        "decode_attention": [],
-    }
+    rows = []
     # The main path's length, then about the 448-px and 896-px presets' lengths.
     for s_len, valid in ((s_main, prompt_len + MAX_NEW_TOKENS // 2), (1100, 1100), (4128, 4128)):
         kc = _rand(torch, gen, (18, 1, s_len, 1, 256), dev)[9]
         vc = _rand(torch, gen, (18, 1, s_len, 1, 256), dev)[9]
         q = _rand(torch, gen, (1, 1, 8, 256), dev)
         vt = torch.tensor([valid], dtype=torch.int32, device=dev)
+        lib = [q.reshape(1, 1, 8, 256), kc[:, :valid].reshape(1, 1, valid, 256).contiguous(),
+               vc[:, :valid].reshape(1, 1, valid, 256).contiguous()]
         # Only the first (main-path) shape counts in the per-launch mean.
-        shapes["decode_attention"].append(
-            (f"decode S={s_len} valid={valid} H=8 Hkv=1 D=256", 18 if s_len == s_main else 0,
-             ca.decode_attention, ca.decode_attention_plain, (q, kc, vc, vt), {"scale": 256**-0.5}))
-    result = {}
-    for kind, rows in shapes.items():
-        by_shape, tot_k, tot_p, n = [], 0.0, 0.0, 0
-        for label, weight, kfn, pfn, args, kw in rows:
-            p1 = _time_ms(torch, lambda: pfn(*args, **kw))
-            k1 = _time_ms(torch, lambda: kfn(*args, **kw))
-            k2 = _time_ms(torch, lambda: kfn(*args, **kw))
-            p2 = _time_ms(torch, lambda: pfn(*args, **kw))
-            km, pm = (k1 + k2) / 2, (p1 + p2) / 2
-            log(f"[time] {kind:16s} {label:44s} device ms/call: kernel {km:.4f} | plain {pm:.4f} "
-                f"(turns: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})")
-            by_shape.append({"shape": label, "ms": km, "plain_ms": pm, "calls_per_request": weight})
-            tot_k, tot_p, n = tot_k + weight * km, tot_p + weight * pm, n + weight
-        result[kind] = {"ms": tot_k / n, "plain_ms": tot_p / n, "by_shape": by_shape}
+        rows.append((f"decode S={s_len} valid={valid} H=8 Hkv=1 D=256", 18 if s_len == s_main else 0,
+                     lambda i, a=(q, kc, vc, vt): ca.decode_attention(*a, scale=256**-0.5),
+                     lambda i, a=(q, kc, vc, vt): ca.decode_attention_plain(*a, scale=256**-0.5),
+                     lambda i, a=lib: sdpa(*a, scale=256**-0.5),
+                     (*_attention_cost(1, 1, valid, 8, 1, 256), "bf16")))
+    result["decode_attention"] = _time_rows(torch, "decode_attention", rows,
+                                            library="F.scaled_dot_product_attention")
+
+    # --- q8_matmul: weights cycled through copies that overflow L2 ---
+    def q8_row(label, weight, m, o, d, f32=False):
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        x = _rand(torch, gen, (m, d), dev)
+        ws = _copies(lambda: (
+            torch.randint(-127, 128, (o, d), generator=gen, device=dev, dtype=torch.int32).to(torch.int8),
+            torch.rand(o, generator=gen, device=dev) / (73 * math.sqrt(d))), o * d)
+        # The library yardstick: F.linear on the weight dequantized to bf16
+        # ahead of time (twice the weight bytes; bf16 out).
+        deq = [(q.float() * s[:, None]).to(torch.bfloat16) for q, s in ws]
+        n = len(ws)
+        nbytes = 2 * m * d + o * d + 4 * o + (4 if f32 else 2) * m * o
+        return (label, weight,
+                lambda i: quant.q8_matmul(x, *ws[i % n], out_dtype),
+                lambda i: quant.q8_matmul_plain(x, *ws[i % n], out_dtype),
+                lambda i: F.linear(x, deq[i % n]), (nbytes, 2 * m * o * d, "bf16"))
+
+    # Per decode token of the int8 arm: 18 layers x (qkv, o, gate_up, down)
+    # and the lm_head row; prefill and SigLIP shapes are reported beside.
+    result["q8_matmul"] = _time_rows(torch, "q8_matmul", [
+        q8_row("decode qkv M=1 O=2560 D=2048", 18, 1, 2560, 2048),
+        q8_row("decode o M=1 O=2048 D=2048", 18, 1, 2048, 2048),
+        q8_row("decode gate_up M=1 O=32768 D=2048", 18, 1, 32768, 2048),
+        q8_row("decode down M=1 O=2048 D=16384", 18, 1, 2048, 16384),
+        q8_row("decode lm_head M=1 O=257152 D=2048 fp32", 1, 1, 257152, 2048, f32=True),
+        q8_row(f"prefill qkv M={prompt_len} O=2560 D=2048", 0, prompt_len, 2560, 2048),
+        q8_row(f"prefill gate_up M={prompt_len} O=32768 D=2048", 0, prompt_len, 32768, 2048),
+        q8_row(f"prefill down M={prompt_len} O=2048 D=16384", 0, prompt_len, 2048, 16384),
+        q8_row("siglip fc1 M=256 O=4304 D=1152", 0, 256, 4304, 1152),
+    ], library="F.linear on the weight dequantized to bf16 ahead of time (bf16 out)")
+    del q8_row
+
+    # --- w4a8_gemv ---
+    def w4_row(label, weight, m, o, d, f32=False):
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        xq, xs = quant.quant_rows(_rand(torch, gen, (m, d), dev))
+        ws = _copies(lambda: (
+            quant.pack_int4(torch.randint(-7, 8, (o, d), generator=gen, device=dev,
+                                          dtype=torch.int32).to(torch.int8)),
+            torch.rand(o, generator=gen, device=dev) / (4.3 * math.sqrt(d))), o * d // 2)
+        n = len(ws)
+        lfn = None
+        # torch._int_mm (int8 x int8 -> int32, no epilogue) on the weights
+        # unpacked to int8, where its shape rules allow (more than 16 rows,
+        # widths a multiple of 8).
+        if m > 16 and d % 8 == 0 and o % 8 == 0:
+            unpacked = [quant.unpack_int4(p) for p, _ in ws]
+            lfn = lambda i: torch._int_mm(xq, unpacked[i % n].t())  # noqa: E731
+        nbytes = m * d + 4 * m + o * d // 2 + 4 * o + (4 if f32 else 2) * m * o
+        return (label, weight,
+                lambda i: quant.w4a8_gemv(xq, xs, *ws[i % n], out_dtype),
+                lambda i: quant.w4a8_gemv_plain(xq, xs, *ws[i % n], out_dtype),
+                lfn, (nbytes, 2 * m * o * d, "int8"))
+
+    # Per decode token of the w4a8 + lm_head_w4 arm: 18 fused MLPs of two
+    # GEMVs each, and the 4-bit lm_head row.
+    result["w4a8_gemv"] = _time_rows(torch, "w4a8_gemv", [
+        w4_row("decode gate_up M=1 O=32768 D=2048", 18, 1, 32768, 2048),
+        w4_row("decode down M=1 O=2048 D=16384", 18, 1, 2048, 16384),
+        w4_row("decode lm_head M=1 O=257152 D=2048 fp32", 1, 1, 257152, 2048, f32=True),
+        w4_row("GEMV M=64 O=32768 D=2048", 0, 64, 32768, 2048),
+    ], library="torch._int_mm on the weights unpacked to int8 (more than 16 rows only; int32 out)")
+    del w4_row
+
+    # --- quant_rows, and the whole mlp_w4a8 it is part of ---
+    def rows_row(label, weight, m, width, geglu):
+        x = _rand(torch, gen, (m, width), dev)
+        d = width // 2 if geglu else width
+        return (label, weight, lambda i: quant.quant_rows(x, geglu),
+                lambda i: quant.quant_rows_plain(x, geglu), None,
+                (2 * m * width + m * d + 4 * m, (12 if geglu else 3) * m * d, "fp32"))
+
+    result["quant_rows"] = _time_rows(torch, "quant_rows", [
+        rows_row("decode mlp input M=1 D=2048", 18, 1, 2048, False),
+        rows_row("decode GeGLU M=1 2I=32768", 18, 1, 32768, True),
+        rows_row("decode lm_head input M=1 D=2048", 1, 1, 2048, False),
+    ])
+    d, inter = 2048, 16384
+    x = _rand(torch, gen, (1, 1, d), dev)
+    mlp_ws = _copies(lambda: (
+        quant.pack_int4(torch.randint(-7, 8, (2 * inter, d), generator=gen, device=dev,
+                                      dtype=torch.int32).to(torch.int8)),
+        torch.rand(2 * inter, generator=gen, device=dev) / (4.3 * math.sqrt(d)),
+        quant.pack_int4(torch.randint(-7, 8, (d, inter), generator=gen, device=dev,
+                                      dtype=torch.int32).to(torch.int8)),
+        torch.rand(d, generator=gen, device=dev) / (3 * math.sqrt(inter))), 3 * d * inter // 2)
+    n = len(mlp_ws)
+    # Bytes: x, both packed weights and their scales, the output; the
+    # (M, 2I) scratch between the launches is the kernels' own traffic.
+    nbytes = 2 * d + 3 * d * inter // 2 + 4 * (2 * inter + d) + 2 * d
+    result["quant_rows"]["mlp_w4a8"] = _time_rows(torch, "mlp_w4a8", [
+        ("decode MLP M=1 D=2048 I=16384 (4 launches)", 18,
+         lambda i: quant.mlp_w4a8(x, *mlp_ws[i % n]), lambda i: quant.mlp_w4a8_plain(x, *mlp_ws[i % n]),
+         None, (nbytes, 2 * 3 * d * inter, "int8")),
+    ])
     return result
 
 
-def phase_main_path(torch, model, proc, tok, cfg):
-    """Three requests through generate(); returns per-request records."""
+def _expected_launches(cfg, mode, lm_head_w4, prompt_len, n_dec):
+    """The launches the code implies for one request: per forward of R rows,
+    qkv and o through q8 in every layer; the MLP through mlp_w4a8 (two
+    quant_rows and two w4a8_gemv launches) when w4a8 and R <= the fused
+    row limit, else two q8 projections; one lm_head row per forward, 4-bit
+    (one quant_rows and one w4a8_gemv launch) with lm_head_w4, else q8 on
+    the int8 embedding."""
+    from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS
+
+    n_layers = cfg.text_config.num_hidden_layers
+    want = collections.Counter(flash_attention=cfg.vision_config.num_hidden_layers + n_layers,
+                               decode_attention=n_layers * n_dec)
+    for rows in [prompt_len] + [1] * n_dec:
+        want["q8_matmul"] += 2 * n_layers
+        if mode == "w4a8" and rows <= MLP_FUSED_MAX_ROWS:
+            want["quant_rows"] += 2 * n_layers
+            want["w4a8_gemv"] += 2 * n_layers
+        else:
+            want["q8_matmul"] += 2 * n_layers
+        if lm_head_w4:
+            want["quant_rows"] += 1
+            want["w4a8_gemv"] += 1
+        else:
+            want["q8_matmul"] += 1
+    return want
+
+
+def build_model(torch):
+    """PaliGemma-3B-224 in bf16 with seeded random weights made on the card,
+    and the byte-tokenizer processor: (cfg, tokenizer, processor, model)."""
+    from paligemma_tpu_torch import paligemma_3b_pt_224
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.processing import (
+        ByteTokenizer, PaliGemmaProcessor, align_config, assert_aligned,
+    )
+
+    cfg0 = paligemma_3b_pt_224()
+    tok = ByteTokenizer()
+    proc = PaliGemmaProcessor(tok, cfg0.vision_config.num_image_tokens, cfg0.vision_config.image_size)
+    cfg = align_config(cfg0, proc)
+    assert_aligned(proc, cfg)
+    t0 = time.perf_counter()
+    model = paligemma.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[model] paligemma_3b_pt_224 bf16, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"params, random init on the card in {time.perf_counter() - t0:.2f} s")
+    return cfg, tok, proc, model
+
+
+def _request(torch, proc, i):
     import numpy as np
     from PIL import Image
 
-    from paligemma_tpu_torch import generation
-    from paligemma_tpu_torch.ops import cuda_attention as ca
-
+    prompt, (w, h) = REQUESTS[i]
+    rng = np.random.RandomState(SEED + i)
+    img = Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+    inputs = proc([prompt], [img])
     dev = torch.device("cuda")
+    return (torch.from_numpy(inputs["input_ids"]).to(dev),
+            torch.from_numpy(inputs["pixel_values"]).to(dev, torch.bfloat16))
+
+
+def _timed_generate(torch, model, ids, pix, tok):
+    """generate() with host stamps: (tokens, cache, prefill ms, decode ms/token)."""
+    from paligemma_tpu_torch import generation
+
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, cache = generation.generate(
+        model, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id,
+        step_callback=lambda step: stamps.append(time.perf_counter()),
+    )
+    torch.cuda.synchronize()
+    n_dec = len(toks) - 1
+    return toks, cache, (stamps[0] - t0) * 1e3, (stamps[-1] - stamps[0]) * 1e3 / max(n_dec, 1)
+
+
+def phase_main_path(torch, model, proc, tok, cfg, main_counts):
+    """Three requests through generate(); returns per-request records. The
+    launch counts of the run are added to ``main_counts``."""
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.ops import kernels
+
     n_layers_llm = cfg.text_config.num_hidden_layers
     n_layers_vis = cfg.vision_config.num_hidden_layers
     records = []
-    ca.reset_launch_counts()  # counts from here on are the main path's
-    for i, (prompt, (w, h)) in enumerate(REQUESTS):
-        rng = np.random.RandomState(SEED + i)
-        img = Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
-        inputs = proc([prompt], [img])
-        ids = torch.from_numpy(inputs["input_ids"]).to(dev)
-        pix = torch.from_numpy(inputs["pixel_values"]).to(dev, torch.bfloat16)
-        before = ca.launch_counts()
-        stamps = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        toks, cache = generation.generate(
-            model, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id,
-            step_callback=lambda step: stamps.append(time.perf_counter()),
-        )
-        torch.cuda.synchronize()
-        after = ca.launch_counts()
+    kernels.reset_launch_counts()  # counts from here on are the main path's
+    for i in range(len(REQUESTS)):
+        ids, pix = _request(torch, proc, i)
+        before = kernels.launch_counts()
+        toks, cache, prefill_ms, decode_ms = _timed_generate(torch, model, ids, pix, tok)
+        after = kernels.launch_counts()
         flash = after["flash_attention"] - before["flash_attention"]
         decode = after["decode_attention"] - before["decode_attention"]
         n_dec = len(toks) - 1
-        prefill_ms = (stamps[0] - t0) * 1e3
-        decode_ms = (stamps[-1] - stamps[0]) * 1e3 / max(n_dec, 1)
         text = tok.decode(toks)
         log(f"[request {i}] prompt_len {ids.shape[1]} | {len(toks)} tokens | text {text!r}")
         log(f"[request {i}] launches flash {flash} (expect {n_layers_vis + n_layers_llm}) "
@@ -285,8 +636,11 @@ def phase_main_path(torch, model, proc, tok, cfg):
         check(cache.length == ids.shape[1] + n_dec, "cache length does not match the tokens")
         check(flash == n_layers_vis + n_layers_llm, f"flash launches {flash} per prefill")
         check(decode == n_layers_llm * n_dec, f"decode launches {decode} for {n_dec} steps")
+        check(all(after[k] == before[k] for k in after if "attention" not in k),
+              "the bf16 path launched a quant kernel")
         records.append({"ids": ids, "pix": pix, "tokens": toks, "prefill_ms": prefill_ms,
                         "decode_ms_per_token": decode_ms})
+    main_counts.update(kernels.launch_counts())
 
     # The chunked decoder (bench.py's decode loop): the same greedy stream
     # with one host sync per chunk instead of one per token.
@@ -305,34 +659,98 @@ def phase_main_path(torch, model, proc, tok, cfg):
     return records
 
 
-def phase_plain_path(torch, model, rec, tok):
-    """Request 0 again through the plain attention functions."""
+def phase_quant_arm(torch, model, proc, tok, cfg, arm, bf16_rec, main_counts):
+    """One serving arm: quantize the bf16 model on the card, answer request 0
+    with the kernels (launch counts held to the code's), then hold its
+    prefill logits to the plain path's. Returns the arm's record."""
+    from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.ops import kernels
+
+    name, mode, lm_head_w4 = arm
+    ids, pix = bf16_rec["ids"], bf16_rec["pix"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = quantization.quantize_params(model, llm_only=True, mode=mode, lm_head_w4=lm_head_w4)
+    torch.cuda.synchronize()
+    llm_gb = quantization.params_bytes(qmodel.llm) / 1e9
+    log(f"[{name}] quantized on the card in {time.perf_counter() - t0:.2f} s | decoder + embeddings "
+        f"{llm_gb:.3f} GB (bf16 {quantization.params_bytes(model.llm) / 1e9:.3f} GB)")
+    generation.generate(qmodel, ids, pix, 2, -1)  # warm-up: the kernels' first loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()  # the arm's main path, read right after it
+    toks, cache, prefill_ms, decode_ms = _timed_generate(torch, model=qmodel, ids=ids, pix=pix, tok=tok)
+    counts = kernels.launch_counts()
+    main_counts.update(counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_dec = len(toks) - 1
+    want = _expected_launches(cfg, mode, lm_head_w4, ids.shape[1], n_dec)
+    agree = sum(a == b for a, b in zip(toks, bf16_rec["tokens"]))
+    log(f"[{name}] prompt_len {ids.shape[1]} | {len(toks)} tokens | text {tok.decode(toks)!r}")
+    log(f"[{name}] launches {dict(counts)} | expected {dict(want)}")
+    log(f"[{name}] prefill {prefill_ms:.2f} ms | decode {decode_ms:.3f} ms/token (host clock, per-token "
+        f"sync) | peak {peak:.3f} GiB (the bf16 model stays resident) | greedy tokens equal to the "
+        f"bf16 arm's: {agree}/{min(len(toks), len(bf16_rec['tokens']))} (reported, not gated: random "
+        "weights)")
+    check(all(0 <= t < cfg.text_config.vocab_size for t in toks), "token id out of range")
+    check(cache.length == ids.shape[1] + n_dec, "cache length does not match the tokens")
+    check(all(counts[k] == want[k] for k in set(counts) | set(want)),
+          f"{name}: launch counts differ from the code's")
+    check(counts["q8_matmul"] > 0, f"{name}: q8_matmul never launched")
+    if mode == "w4a8":
+        check(counts["w4a8_gemv"] > 0 and counts["quant_rows"] > 0,
+              f"{name}: the w4a8 kernels never launched")
+
+    err, bar, first_k, first_p = _kernel_vs_plain_logits(torch, qmodel, ids, pix)
+    log(f"[{name}] [plain] prefill last-position logits max|kernel - plain| {err:.4e} (bar {bar:.4e}) "
+        f"| first token kernel {first_k} plain {first_p}")
+    check(err <= bar, f"{name}: kernel-path and plain-path logits disagree")
+    check(first_k == first_p == toks[0], f"{name}: first greedy token differs")
+    del qmodel
+    torch.cuda.empty_cache()
+    return {"arm": name, "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms, "peak_gib": peak,
+            "llm_gb": llm_gb, "agree_with_bf16": agree, "max_abs_logit_err": err}
+
+
+def _kernel_vs_plain_logits(torch, model, ids, pix):
+    """Prefill's last-position logits through the kernels and through the
+    plain versions: (max abs difference, bar, first token kernel, plain).
+    The plain run must launch no kernel."""
     from paligemma_tpu_torch import generation
-    from paligemma_tpu_torch.ops import cuda_attention as ca
+    from paligemma_tpu_torch.ops import kernels
 
-    ids, pix = rec["ids"], rec["pix"]
-
-    def last_logits(attn):
+    def last_logits(fns):
         cache = generation.make_cache(model, 1, ids.shape[1], MAX_NEW_TOKENS)
-        lg, _ = generation.prefill(model, ids, pix, cache, attn)
+        lg, _ = generation.prefill(model, ids, pix, cache, fns)
         return lg[0, -1].float()
 
-    before = ca.launch_counts()
-    lg_k = last_logits(ca.KERNELS)
-    mid = ca.launch_counts()
-    lg_p = last_logits(ca.PLAIN)
-    toks_p, _ = generation.generate(model, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id, attn=ca.PLAIN)
-    after = ca.launch_counts()
+    lg_k = last_logits(kernels.KERNELS)
+    mid = kernels.launch_counts()
+    lg_p = last_logits(kernels.PLAIN)
     torch.cuda.synchronize()
+    check(kernels.launch_counts() == mid, "the plain path launched a kernel")
     check(bool(torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()), "non-finite logits")
     err = float((lg_k - lg_p).abs().max())
-    bar = LOGIT_REL_TOL * float(lg_p.abs().max())
-    first_k, first_p = int(lg_k.argmax()), int(lg_p.argmax())
+    return err, LOGIT_REL_TOL * float(lg_p.abs().max()), int(lg_k.argmax()), int(lg_p.argmax())
+
+
+def phase_plain_path(torch, model, rec, tok):
+    """Request 0 again through the plain kernel functions (bf16 model)."""
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.ops import kernels
+
+    ids, pix = rec["ids"], rec["pix"]
+    before = kernels.launch_counts()
+    err, bar, first_k, first_p = _kernel_vs_plain_logits(torch, model, ids, pix)
+    mid = kernels.launch_counts()
+    toks_p, _ = generation.generate(model, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id, fns=kernels.PLAIN)
+    after = kernels.launch_counts()
     agree = sum(a == b for a, b in zip(rec["tokens"], toks_p))
-    log(f"[plain] prefill last-position logits max|kernel - plain| {err:.4e} (bar {bar:.4e}, "
-        f"max|logit| {float(lg_p.abs().max()):.3f}) | first token kernel {first_k} plain {first_p}")
+    log(f"[plain] prefill last-position logits max|kernel - plain| {err:.4e} (bar {bar:.4e}) "
+        f"| first token kernel {first_k} plain {first_p}")
     log(f"[plain] launches: kernel prefill {mid['flash_attention'] - before['flash_attention']} flash; "
-        f"plain run {after['flash_attention'] - mid['flash_attention']} flash, "
+        f"plain generate {after['flash_attention'] - mid['flash_attention']} flash, "
         f"{after['decode_attention'] - mid['decode_attention']} decode")
     log(f"[plain] greedy token agreement over {len(toks_p)} tokens: {agree}/{min(len(toks_p), len(rec['tokens']))}"
         " (reported, not gated: near-ties can flip a bf16 argmax)")
@@ -340,6 +758,18 @@ def phase_plain_path(torch, model, rec, tok):
     check(first_k == first_p == rec["tokens"][0], "first greedy token differs")
     check(mid["flash_attention"] - before["flash_attention"] == 45, "kernel prefill did not launch")
     check(after == mid, "the plain path launched a kernel")
+
+
+KERNEL_TABLE = [
+    # name, source, the TPU kernel it replaces
+    ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
+    ("decode_attention", "paligemma_tpu_torch/csrc/decode_attention.cu", "paligemma_tpu/ops/pallas_attention.py:242"),
+    ("q8_matmul", "paligemma_tpu_torch/csrc/q8_matmul.cu", "paligemma_tpu/ops/pallas_quant.py:185"),
+    ("w4a8_gemv", "paligemma_tpu_torch/csrc/w4a8.cu", "paligemma_tpu/ops/pallas_quant.py:497"),
+    # quant_rows with its GeGLU prologue is the middle of mlp_w4a8 (four
+    # launches: quant_rows, w4a8_gemv, quant_rows, w4a8_gemv).
+    ("quant_rows", "paligemma_tpu_torch/csrc/w4a8.cu", "paligemma_tpu/ops/pallas_quant.py:678"),
+]
 
 
 def main() -> int:
@@ -353,45 +783,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    from paligemma_tpu_torch import paligemma_3b_pt_224
-    from paligemma_tpu_torch.models import paligemma
-    from paligemma_tpu_torch.ops import cuda_attention as ca
-    from paligemma_tpu_torch.processing import (
-        ByteTokenizer, PaliGemmaProcessor, align_config, assert_aligned,
-    )
-
     name, count = phase_device(torch)
     phase_build()
-    max_err = phase_kernels(torch)
+    max_err = {**phase_kernels(torch), **phase_quant_kernels(torch)}
 
-    cfg0 = paligemma_3b_pt_224()
-    tok = ByteTokenizer()
-    proc = PaliGemmaProcessor(tok, cfg0.vision_config.num_image_tokens, cfg0.vision_config.image_size)
-    cfg = align_config(cfg0, proc)
-    assert_aligned(proc, cfg)
-    t0 = time.perf_counter()
-    model = paligemma.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    log(f"[model] paligemma_3b_pt_224 bf16, {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
-        f"params, random init on the card in {time.perf_counter() - t0:.2f} s")
+    cfg, tok, proc, model = build_model(torch)
     torch.cuda.reset_peak_memory_stats()
-    records = phase_main_path(torch, model, proc, tok, cfg)
-    counts = ca.launch_counts()
+    main_counts = collections.Counter()
+    records = phase_main_path(torch, model, proc, tok, cfg, main_counts)
     log(f"[memory] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     phase_plain_path(torch, model, records[0], tok)
+    arms = [phase_quant_arm(torch, model, proc, tok, cfg, arm, records[0], main_counts) for arm in QUANT_ARMS]
+    log(f"[arms] {json.dumps(arms)}")
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
-    kernels = [
-        {"name": "flash_attention", "route": "cuda",
-         "source": "paligemma_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "paligemma_tpu/ops/pallas_attention.py:100"},
-        {"name": "decode_attention", "route": "cuda",
-         "source": "paligemma_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "paligemma_tpu/ops/pallas_attention.py:242"},
-    ]
-    for k in kernels:
-        check(counts[k["name"]] > 0, f"{k['name']} was never launched on the main path")
-        k.update(launches=counts[k["name"]], max_abs_err=max_err[k["name"]], **times[k["name"]])
+    kernels = []
+    for kname, source, replaces in KERNEL_TABLE:
+        check(main_counts[kname] > 0, f"{kname} was never launched on the main path")
+        kernels.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": main_counts[kname], "max_abs_err": max_err[kname], **times[kname]})
+    kernels[-1]["mlp_w4a8"]["max_abs_err"] = max_err["mlp_w4a8"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0

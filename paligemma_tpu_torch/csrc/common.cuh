@@ -1,5 +1,6 @@
-// Shared helpers for the attention kernels: bf16 conversion, warp
-// reductions, and the LengthMask visibility rule of the reference
+// Shared helpers of the kernels: bf16 conversion, warp reductions, the
+// mma.sync m16n8k16 fragment helpers (flash attention, the int8 GEMM), and
+// the LengthMask visibility rule of the reference
 // (paligemma_tpu/ops/attention.py::LengthMask): batch row b sees kv
 // positions [0, valid[b]) and the shared window [win0, win1).
 #pragma once
@@ -52,5 +53,54 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
     float2 f = __bfloat1622float2(h[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
+  }
+}
+
+// D (16x8 fp32) += A (16x16 bf16, row) * B (16x8 bf16, col). Fragments as
+// in the PTX ISA: with g = lane / 4 and t4 = lane % 4, a[0..3] hold A rows
+// g, g+8 at columns 2*t4 (+1) and 2*t4+8 (+1); b0/b1 hold B column g at rows
+// 2*t4 (+1) and 2*t4+8 (+1); c[0..3] hold D rows g, g+8 at columns 2*t4 (+1).
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  bf162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  bf162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One output value of the quant matmuls, fp32 or rounded once to bf16.
+template <bool F32OUT>
+__device__ __forceinline__ void store_out(void* out, long long idx, float v) {
+  if (F32OUT) {
+    static_cast<float*>(out)[idx] = v;
+  } else {
+    static_cast<bf16*>(out)[idx] = __float2bfloat16_rn(v);
+  }
+}
+
+// Four signed int8 values of a 32-bit word widened to fp32, exactly, with a
+// byte permute and a subtraction per value (no int-to-float conversions):
+// 0x4B000000 | u is the float 2^23 + u for a byte u, and u = q + 128.
+__device__ __forceinline__ void s8x4_to_float(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u | k)) - 8388736.f;
   }
 }

@@ -15,7 +15,7 @@ import torch
 from paligemma_tpu_torch.models import gemma, paligemma
 from paligemma_tpu_torch.models.gemma import KVCache
 from paligemma_tpu_torch.models.paligemma import PaliGemma
-from paligemma_tpu_torch.ops.cuda_attention import KERNELS, AttentionFns
+from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 from paligemma_tpu_torch.ops.sampling import greedy
 
 
@@ -26,10 +26,11 @@ def make_cache(
     max_new_tokens: int,
 ) -> KVCache:
     """A cache for ``prompt_len + max_new_tokens`` positions on the model's
-    device, in the model's dtype (the attention kernels take one dtype)."""
-    w = model.llm.embed
+    device, in the decoder's activation dtype (the attention kernels take
+    one dtype; an int8 embedding makes it bf16)."""
     return gemma.init_cache(
-        model.cfg.text_config, batch, prompt_len + max_new_tokens, w.dtype, w.device
+        model.cfg.text_config, batch, prompt_len + max_new_tokens,
+        gemma.activation_dtype(model.llm), model.llm.final_norm.weight.device,
     )
 
 
@@ -39,10 +40,10 @@ def prefill(
     input_ids: torch.Tensor,
     pixel_values: torch.Tensor,
     cache: KVCache,
-    attn: AttentionFns = KERNELS,
+    fns: KernelFns = KERNELS,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill with last-position logits only: (B, 1, V) fp32 + warm cache."""
-    return paligemma.prefill(model, input_ids, pixel_values, cache, full_logits=False, attn=attn)
+    return paligemma.prefill(model, input_ids, pixel_values, cache, full_logits=False, fns=fns)
 
 
 @torch.no_grad()
@@ -51,7 +52,7 @@ def decode_steps(
     token: torch.Tensor,
     cache: KVCache,
     n_steps: int,
-    attn: AttentionFns = KERNELS,
+    fns: KernelFns = KERNELS,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """``n_steps`` greedy steps from the (B, 1) ``token``.
 
@@ -60,7 +61,7 @@ def decode_steps(
     """
     toks = []
     for _ in range(n_steps):
-        logits, cache = paligemma.decode_step(model, token, cache, attn)
+        logits, cache = paligemma.decode_step(model, token, cache, fns)
         token = greedy(logits[:, -1, :])[:, None]
         toks.append(token)
     return torch.cat(toks, dim=1), token, cache
@@ -74,7 +75,7 @@ def generate(
     max_new_tokens: int,
     eos_token_id: int,
     step_callback: Optional[Callable[[int], None]] = None,
-    attn: AttentionFns = KERNELS,
+    fns: KernelFns = KERNELS,
 ) -> Tuple[List[int], KVCache]:
     """Batch-1 greedy generation with a host EOS exit (``eos_token_id=-1``
     never matches a token, so it always runs ``max_new_tokens`` steps).
@@ -86,7 +87,7 @@ def generate(
     if b != 1:
         raise ValueError(f"generate() is batch-1 (got batch {b})")
     cache = make_cache(model, b, t, max_new_tokens)
-    logits, cache = prefill(model, input_ids, pixel_values, cache, attn)
+    logits, cache = prefill(model, input_ids, pixel_values, cache, fns)
     token = greedy(logits[:, -1, :])
     out = [int(token[0])]
     if step_callback is not None:
@@ -94,7 +95,7 @@ def generate(
     for step in range(1, max_new_tokens):
         if out[-1] == eos_token_id:
             break
-        logits, cache = paligemma.decode_step(model, token[:, None], cache, attn)
+        logits, cache = paligemma.decode_step(model, token[:, None], cache, fns)
         token = greedy(logits[:, -1, :])
         out.append(int(token[0]))  # host sync, like the reference's .item()
         if step_callback is not None:

@@ -14,7 +14,12 @@ final RMSNorm, fp32 logits through the tied embedding.
   length, a preallocated (B,) int32 device tensor filled from the host
   length, so no step reads anything back from the device.
 - q/k/v and gate/up are fused projections, stored in ``nn.Linear``'s
-  (out, in) layout.
+  (out, in) layout. ``quantization.quantize_params`` swaps them for
+  ``QLinear`` (int8) or ``W4A8Linear`` (int4) modules; ``proj`` dispatches
+  the float and int8 types, and the MLP routes w4a8 calls of up to
+  ``MLP_FUSED_MAX_ROWS`` rows to the fused MLP and larger ones to the int8
+  companions, as the reference does. An int8 embedding makes the trunk bf16
+  (its lookup is bf16) and gives fp32 logits through ``q8``.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from paligemma_tpu_torch.config import GemmaConfig
-from paligemma_tpu_torch.ops.cuda_attention import KERNELS, AttentionFns
+from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
+from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, geglu
 from paligemma_tpu_torch.ops.norms import rms_norm
 from paligemma_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from paligemma_tpu_torch.quantization import QLinear, W4A8Linear, qproj
 
 
 @dataclasses.dataclass
@@ -51,7 +58,7 @@ class KVCache:
 
 
 def init_cache(
-    cfg: GemmaConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None
+    cfg: GemmaConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
 ) -> KVCache:
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
     return KVCache(
@@ -72,6 +79,14 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
+def proj(x: torch.Tensor, w: nn.Module, fns: KernelFns) -> torch.Tensor:
+    """``x @ W^T`` in x.dtype for a bias-free float or int8 projection (the
+    reference's ``_proj``; w4a8 weights are routed by ``mlp`` and ``logits``)."""
+    if isinstance(w, QLinear):
+        return qproj(x, w, fns)
+    return F.linear(x, w.weight)
+
+
 class GemmaLayer(nn.Module):
     def __init__(self, cfg: GemmaConfig, dtype=None):
         super().__init__()
@@ -85,11 +100,11 @@ class GemmaLayer(nn.Module):
         self.gate_up = nn.Linear(d, 2 * i, bias=False, dtype=dtype)  # fused gate | up
         self.down = nn.Linear(i, d, bias=False, dtype=dtype)
 
-    def attention(self, x, cos, sin, cache: Optional[KVCache], li: int, attn: AttentionFns):
+    def attention(self, x, cos, sin, cache: Optional[KVCache], li: int, fns: KernelFns):
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q, k, v = F.linear(x, self.qkv.weight).split([h * hd, hkv * hd, hkv * hd], dim=-1)
+        q, k, v = proj(x, self.qkv, fns).split([h * hd, hkv * hd, hkv * hd], dim=-1)
         q = apply_rope(q.view(b, t, h, hd), cos, sin)
         k = apply_rope(k.view(b, t, hkv, hd), cos, sin)
         v = v.view(b, t, hkv, hd)
@@ -99,21 +114,24 @@ class GemmaLayer(nn.Module):
             cache.k[li, :, pos : pos + t] = k  # in place
             cache.v[li, :, pos : pos + t] = v
             if t == 1:
-                out = attn.decode(q, cache.k[li], cache.v[li], cache.valid, scale=scale)
-                return F.linear(out.reshape(b, t, h * hd), self.o.weight)
+                out = fns.decode(q, cache.k[li], cache.v[li], cache.valid, scale=scale)
+                return proj(out.reshape(b, t, h * hd), self.o, fns)
         # Prefill: bidirectional over the fresh K/V only (exact: nothing else
         # is visible yet).
-        out = attn.flash(q, k, v, scale=scale)
-        return F.linear(out.reshape(b, t, h * hd), self.o.weight)
+        out = fns.flash(q, k, v, scale=scale)
+        return proj(out.reshape(b, t, h * hd), self.o, fns)
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = F.linear(x, self.gate_up.weight).chunk(2, dim=-1)
-        act = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
-        return F.linear(act * up, self.down.weight)
+    def mlp(self, x: torch.Tensor, fns: KernelFns) -> torch.Tensor:
+        gu_w, dn_w = self.gate_up, self.down
+        if isinstance(gu_w, W4A8Linear):
+            if x.shape[0] * x.shape[1] <= MLP_FUSED_MAX_ROWS:
+                return fns.mlp_w4a8(x, gu_w.packed, gu_w.scale, dn_w.packed, dn_w.scale)
+            gu_w, dn_w = self.gate_up_i8, self.down_i8  # matrix-shaped calls
+        return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
 
-    def forward(self, h, cos, sin, cache: Optional[KVCache], li: int, attn: AttentionFns):
-        h = h + self.attention(self.input_ln(h), cos, sin, cache, li, attn)
-        return h + self.mlp(self.post_ln(h))
+    def forward(self, h, cos, sin, cache: Optional[KVCache], li: int, fns: KernelFns):
+        h = h + self.attention(self.input_ln(h), cos, sin, cache, li, fns)
+        return h + self.mlp(self.post_ln(h), fns)
 
 
 class GemmaModel(nn.Module):
@@ -123,6 +141,16 @@ class GemmaModel(nn.Module):
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=dtype))
         self.layers = nn.ModuleList(GemmaLayer(cfg, dtype) for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
+        # Set by quantization.quantize_params(mode="w4a8"): the 4-bit lm_head
+        # copy, and whether calls of up to 64 rows use it.
+        self.embed_w4: Optional[W4A8Linear] = None
+        self.lm_head_w4 = False
+
+
+def activation_dtype(model: GemmaModel) -> torch.dtype:
+    """The trunk's dtype: that of the text embeddings (bf16 when the
+    embedding is int8, as the reference's lookup gives)."""
+    return torch.bfloat16 if isinstance(model.embed, QLinear) else model.embed.dtype
 
 
 def forward(
@@ -130,7 +158,7 @@ def forward(
     inputs_embeds: torch.Tensor,
     positions: torch.Tensor,
     cache: Optional[KVCache] = None,
-    attn: AttentionFns = KERNELS,
+    fns: KernelFns = KERNELS,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
@@ -152,20 +180,27 @@ def forward(
             raise ValueError(f"cache full: {cache.length} + {t} > {cache.max_len}")
         cache.valid.fill_(cache.length + t)
     for li, layer in enumerate(model.layers):
-        h = layer(h, cos, sin, cache, li, attn)
+        h = layer(h, cos, sin, cache, li, fns)
     if cache is not None:
         cache.length += t
     return model.final_norm(h), cache
 
 
-def logits(model: GemmaModel, hidden: torch.Tensor) -> torch.Tensor:
+def logits(model: GemmaModel, hidden: torch.Tensor, fns: KernelFns = KERNELS) -> torch.Tensor:
     """Tied lm_head, fp32 logits (B, T, V).
 
     The product is accumulated and returned in fp32 without rounding through
     the activation dtype. On CUDA ``torch.mm(..., out_dtype=float32)`` does
     that straight from the bf16 operands; elsewhere the operands are widened.
+    An int8 embedding goes through ``fns.q8`` with fp32 out; with
+    ``lm_head_w4`` on, calls of up to 64 rows go through the 4-bit copy.
     """
     emb = model.embed
+    if model.lm_head_w4 and hidden.shape[0] * hidden.shape[1] <= MLP_FUSED_MAX_ROWS:
+        w4 = model.embed_w4
+        return fns.q4a8(hidden, w4.packed, w4.scale, out_dtype=torch.float32)
+    if isinstance(emb, QLinear):
+        return fns.q8(hidden, emb.weight, emb.scale, out_dtype=torch.float32)
     h2 = hidden.reshape(-1, hidden.shape[-1])
     if h2.is_cuda and h2.dtype != torch.float32:
         out = torch.mm(h2, emb.t(), out_dtype=torch.float32)
@@ -175,5 +210,10 @@ def logits(model: GemmaModel, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(model: GemmaModel, input_ids: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup (unscaled)."""
-    return F.embedding(input_ids, model.embed)
+    """Token embedding lookup (unscaled). An int8 row is widened to bf16 and
+    scaled by its scale rounded to bf16, as the reference does."""
+    emb = model.embed
+    if isinstance(emb, QLinear):
+        rows = emb.weight[input_ids].to(torch.bfloat16)
+        return rows * emb.scale[input_ids].to(torch.bfloat16)[..., None]
+    return F.embedding(input_ids, emb)

@@ -10,8 +10,9 @@
   ``jnp.take`` clamps).
 - Prefill positions are 0..T-1; a decode step sits at position = cache length.
 
-Every function takes ``attn``, the attention functions to run; the default
-dispatches to the CUDA kernels on a CUDA tensor (``ops.cuda_attention``).
+Every function takes ``fns``, the kernel functions to run
+(``ops.kernels.KernelFns``); the default dispatches to the CUDA kernels on a
+CUDA tensor, ``ops.kernels.PLAIN`` runs the plain versions.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from paligemma_tpu_torch.config import PaliGemmaConfig
 from paligemma_tpu_torch.models import gemma, siglip
 from paligemma_tpu_torch.models.gemma import GemmaModel, KVCache, RMSNorm
 from paligemma_tpu_torch.models.siglip import LayerNorm, SiglipVisionModel, linear
-from paligemma_tpu_torch.ops.cuda_attention import KERNELS, AttentionFns
+from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 
 
 class PaliGemma(nn.Module):
@@ -46,7 +47,7 @@ def empty_model(cfg: PaliGemmaConfig, device, dtype: torch.dtype) -> PaliGemma:
 def init_params(
     cfg: PaliGemmaConfig,
     generator: Union[int, torch.Generator],
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
 ) -> PaliGemma:
     """Random weights made on ``device`` from a seed or generator, with the
@@ -72,11 +73,11 @@ def init_params(
 
 
 def encode_image(
-    model: PaliGemma, pixel_values: torch.Tensor, attn: AttentionFns = KERNELS
+    model: PaliGemma, pixel_values: torch.Tensor, fns: KernelFns = KERNELS
 ) -> torch.Tensor:
     """(B, C, H, W) -> (B, N_img, hidden): vision tower, projector, 1/sqrt(hidden)."""
-    feats = siglip.apply(model.vision, pixel_values, attn)
-    proj = linear(feats, model.projector)
+    feats = siglip.apply(model.vision, pixel_values, fns)
+    proj = linear(feats, model.projector, fns)
     return proj / torch.tensor(model.cfg.hidden_size**0.5, dtype=proj.dtype)
 
 
@@ -95,28 +96,28 @@ def prefill(
     pixel_values: torch.Tensor,
     cache: KVCache,
     full_logits: bool = True,
-    attn: AttentionFns = KERNELS,
+    fns: KernelFns = KERNELS,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Image + templated prompt -> fp32 logits (B, T or 1, V) + the warm cache.
 
     ``full_logits=False`` computes the lm_head for the last position only.
     """
     b, t = input_ids.shape
-    embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, attn))
+    embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, fns))
     positions = torch.arange(t, dtype=torch.int32, device=input_ids.device).expand(b, t)
-    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, attn)
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns)
     if not full_logits:
         hidden = hidden[:, -1:, :]
-    return gemma.logits(model.llm, hidden), cache
+    return gemma.logits(model.llm, hidden, fns), cache
 
 
 def decode_step(
-    model: PaliGemma, token: torch.Tensor, cache: KVCache, attn: AttentionFns = KERNELS
+    model: PaliGemma, token: torch.Tensor, cache: KVCache, fns: KernelFns = KERNELS
 ) -> Tuple[torch.Tensor, KVCache]:
     """One step: (B, 1) token -> (B, 1, V) fp32 logits; the cache advances by one."""
     positions = torch.full(
         (token.shape[0], 1), cache.length, dtype=torch.int32, device=token.device
     )
     embeds = gemma.embed_tokens(model.llm, token)
-    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, attn)
-    return gemma.logits(model.llm, hidden), cache
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns)
+    return gemma.logits(model.llm, hidden, fns), cache

@@ -9,7 +9,7 @@ Layers are a ``ModuleList`` in place of the JAX package's stacked ``(L, ...)``
 params and ``lax.scan``. Linear weights use ``nn.Linear``'s (out, in) layout;
 ``utils/convert.py`` transposes the JAX (in, out) kernels. Each projection
 rounds its product to the activation dtype before adding the bias, as the
-reference does.
+reference does, for a float weight and for an int8 ``QLinear`` alike.
 """
 from __future__ import annotations
 
@@ -18,13 +18,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from paligemma_tpu_torch.config import SiglipVisionConfig
-from paligemma_tpu_torch.ops.cuda_attention import KERNELS, AttentionFns
+from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 from paligemma_tpu_torch.ops.norms import layer_norm
+from paligemma_tpu_torch.quantization import QLinear, qproj
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+def linear(x: torch.Tensor, layer: nn.Module, fns: KernelFns) -> torch.Tensor:
     """``x @ W`` rounded to x.dtype, then ``+ b`` (the reference's order)."""
-    y = F.linear(x, layer.weight)
+    y = qproj(x, layer, fns) if isinstance(layer, QLinear) else F.linear(x, layer.weight)
     return y if layer.bias is None else y + layer.bias
 
 
@@ -53,16 +54,16 @@ class SiglipLayer(nn.Module):
         self.fc1 = nn.Linear(d, i, dtype=dtype)
         self.fc2 = nn.Linear(i, d, dtype=dtype)
 
-    def forward(self, h: torch.Tensor, attn: AttentionFns) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, fns: KernelFns) -> torch.Tensor:
         cfg = self.cfg
         b, n, d = h.shape
         x = self.ln1(h)
-        qkv = linear(x, self.qkv)
+        qkv = linear(x, self.qkv, fns)
         q, k, v = (y.view(b, n, cfg.num_attention_heads, cfg.head_dim) for y in qkv.split(d, dim=-1))
-        h = h + linear(attn.flash(q, k, v).reshape(b, n, d), self.o)
-        x = linear(self.ln2(h), self.fc1)
+        h = h + linear(fns.flash(q, k, v).reshape(b, n, d), self.o, fns)
+        x = linear(self.ln2(h), self.fc1, fns)
         x = F.gelu(x.float(), approximate="tanh").to(x.dtype)
-        return h + linear(x, self.fc2)
+        return h + linear(x, self.fc2, fns)
 
 
 class SiglipVisionModel(nn.Module):
@@ -86,18 +87,18 @@ def extract_patches(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor
     return x.reshape(b, (h // p) * (w // p), c * p * p)
 
 
-def embed(model: SiglipVisionModel, pixel_values: torch.Tensor) -> torch.Tensor:
+def embed(model: SiglipVisionModel, pixel_values: torch.Tensor, fns: KernelFns = KERNELS) -> torch.Tensor:
     """Patch + position embedding."""
     w = model.patch_embedding.weight
     patches = extract_patches(pixel_values, model.cfg.patch_size).to(w.dtype)
-    return linear(patches, model.patch_embedding) + model.position_embedding
+    return linear(patches, model.patch_embedding, fns) + model.position_embedding
 
 
 def apply(
-    model: SiglipVisionModel, pixel_values: torch.Tensor, attn: AttentionFns = KERNELS
+    model: SiglipVisionModel, pixel_values: torch.Tensor, fns: KernelFns = KERNELS
 ) -> torch.Tensor:
     """Full encoder: (B, C, H, W) -> (B, N, D)."""
-    h = embed(model, pixel_values)
+    h = embed(model, pixel_values, fns)
     for layer in model.layers:
-        h = layer(h, attn)
+        h = layer(h, fns)
     return model.post_layernorm(h)

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``paligemma_tpu_torch/csrc``.
 
-The ``.cu`` sources are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
-one shared library with a plain C interface, loaded with ``ctypes``. Nothing
-includes PyTorch's headers, so a build takes seconds. The library lands in
+The ``.cu`` sources are compiled with ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc -c`` per source, all started together, then linked into one shared
+library with a plain C interface, loaded with ``ctypes``. Nothing includes
+PyTorch's headers, so a build takes seconds. The library lands in
 ``paligemma_tpu_torch/_build/<hash of the sources>/`` (listed in
 ``.gitignore``) at first use; a changed source or flag gets a new directory. A
 missing ``nvcc`` or a failed build raises: there is no fallback.
@@ -24,7 +25,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libpaligemma_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every exported function; pointers and the stream are c_void_p
@@ -32,6 +34,9 @@ _ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctyp
 _SIGNATURES = {
     "pg_flash_attention": [_ptr] * 5 + [_int] * 6 + [_ll] * 9 + [_int, _int, _float, _ptr],
     "pg_decode_attention": [_ptr] * 8 + [_int] * 6 + [_ll] * 8 + [_int, _int, _float, _ptr],
+    "pg_q8_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int, _ptr],
+    "pg_quant_rows": [_ptr] * 3 + [_int] * 2 + [_ll, _int, _ptr],
+    "pg_w4a8_gemv": [_ptr] * 5 + [_int] * 4 + [_ptr],
 }
 
 
@@ -41,7 +46,7 @@ def sources() -> List[Path]:
 
 def source_hash() -> str:
     """Hash of the nvcc flags and every source, so either change rebuilds."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh"))):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -67,33 +72,47 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(out_path: Path, nvcc: str = "nvcc") -> List[str]:
-    """The nvcc command line that builds every source into ``out_path``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out_path), *map(str, sources())]
+def compile_commands(obj_dir: Path, nvcc: str = "nvcc") -> List[List[str]]:
+    """One ``nvcc -c`` command line per source, each writing its object
+    file into ``obj_dir``."""
+    return [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj_dir / (src.stem + ".o")), str(src)]
+        for src in sources()
+    ]
+
+
+def link_command(out_path: Path, objects: List[str], nvcc: str = "nvcc") -> List[str]:
+    return [nvcc, *LINK_FLAGS, "-o", str(out_path), *objects]
+
+
+def _run_all(commands: List[List[str]]) -> None:
+    """Run the commands side by side; raise with every failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    failed = []
+    for cmd, proc in zip(commands, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build() -> Path:
     """Compile the kernels unless this source hash is already built; return
-    the library path. The library is written under a temporary name and
+    the library path. The library is linked under a temporary name and
     renamed, so a concurrent or interrupted build never leaves half a file."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            nvcc_command(Path(tmp), find_nvcc()), capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        commands = compile_commands(Path(tmp), nvcc)
+        _run_all(commands)
+        lib = Path(tmp) / LIB_NAME
+        _run_all([link_command(lib, [c[c.index("-o") + 1] for c in commands], nvcc)])
+        os.replace(lib, out)
     return out
 
 

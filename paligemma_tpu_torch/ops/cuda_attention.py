@@ -9,6 +9,7 @@ dispatches on the device of its query tensor:
 
 Each wrapper counts its kernel launches in its ``launches`` attribute, so a
 run can show that it went through the kernels (``reset_launch_counts``).
+The model functions reach these through ``ops.kernels.KernelFns``.
 
 The plain versions compute what the kernels compute, unblocked: fp32 scores
 times ``scale``, invisible positions set to ``NEG_INF``, and
@@ -23,7 +24,7 @@ positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -242,18 +243,6 @@ def _check_cuda(name: str, q, k, v, h: int, hkv: int, d: int) -> None:
         raise ValueError(f"{name}: head_dim {d} must be a multiple of 8 in [8, {MAX_HEAD_DIM}]")
     if hkv < 1 or h % hkv:
         raise ValueError(f"{name}: {h} query heads do not group over {hkv} kv heads")
-
-
-class AttentionFns(NamedTuple):
-    """The attention functions a model runs: ``flash`` for SigLIP and prefill,
-    ``decode`` for one token against the cache."""
-
-    flash: Callable[..., torch.Tensor]
-    decode: Callable[..., torch.Tensor]
-
-
-KERNELS = AttentionFns(flash_attention, decode_attention)
-PLAIN = AttentionFns(flash_attention_plain, decode_attention_plain)
 
 
 def launch_counts() -> dict:

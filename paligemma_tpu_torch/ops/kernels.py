@@ -1,0 +1,48 @@
+"""The bundle of kernel functions the model functions run.
+
+Every model function takes one ``fns`` argument, a ``KernelFns``:
+
+- ``KERNELS`` holds the dispatching wrappers (a CPU tensor runs the plain
+  version, a CUDA tensor launches the kernel or raises);
+- ``PLAIN`` holds the plain PyTorch versions, which never launch a kernel,
+  so a caller can run the same model on the card without the kernels.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from paligemma_tpu_torch.ops import cuda_attention as ca
+from paligemma_tpu_torch.ops import quant
+
+
+class KernelFns(NamedTuple):
+    """``flash``: SigLIP and prefill attention; ``decode``: one token against
+    the cache; ``q8``: every int8 projection and the int8 lm_head; ``q4a8``:
+    the 4-bit lm_head; ``mlp_w4a8``: the w4a8 MLP."""
+
+    flash: Callable[..., torch.Tensor]
+    decode: Callable[..., torch.Tensor]
+    q8: Callable[..., torch.Tensor]
+    q4a8: Callable[..., torch.Tensor]
+    mlp_w4a8: Callable[..., torch.Tensor]
+
+
+KERNELS = KernelFns(
+    ca.flash_attention, ca.decode_attention, quant.q8_matmul, quant.q4a8_matmul, quant.mlp_w4a8
+)
+PLAIN = KernelFns(
+    ca.flash_attention_plain, ca.decode_attention_plain, quant.q8_matmul_plain,
+    quant.q4a8_matmul_plain, quant.mlp_w4a8_plain,
+)
+
+
+def launch_counts() -> dict:
+    """Launches of every kernel."""
+    return {**ca.launch_counts(), **quant.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    ca.reset_launch_counts()
+    quant.reset_launch_counts()

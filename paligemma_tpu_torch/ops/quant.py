@@ -1,0 +1,328 @@
+"""int8 and w4a8 matmuls: hand-written CUDA kernels and their plain versions.
+
+Port of the serving-path parts of ``paligemma_tpu/ops/pallas_quant.py``
+(``q8_matmul``, ``quantize_rows_s8``, ``q4a8_matmul[_tiled]``,
+``mlp_w4a8[_stacked]``). Each public function dispatches on the device of
+its activation tensor:
+
+- a CPU tensor takes the plain PyTorch version beside it (``*_plain``),
+- a CUDA tensor launches the kernels of ``csrc/q8_matmul.cu`` and
+  ``csrc/w4a8.cu`` or raises; there is no fallback.
+
+The weight layout is the port's own, ``nn.Linear``'s ``(out, in)``:
+
+- int8: ``q`` (O, D) int8 with one fp32 scale per output row, ``s`` (O,);
+  the tied lm_head (V, D) with its per-row scales is the same shape.
+- int4 (w4a8): ``packed`` (O, D/2) uint8, two signed nibbles of one output
+  row per byte. Within each group of 8 input columns ``8i..8i+7``, byte
+  ``4i + k`` holds column ``8i + k`` in its low nibble and ``8i + 4 + k`` in
+  its high nibble, so one 32-bit word of packed bytes pairs with two 32-bit
+  words of int8 activations in ``__dp4a``.
+
+Numerics, as in the reference:
+
+- ``q8_matmul``: ``(x @ q^T)`` accumulated in fp32, times the scale in fp32,
+  rounded once to the output dtype.
+- ``quant_rows``: per row ``xs = max(absmax, 1e-8) / 127``,
+  ``xq = round_half_even(x / xs)``.
+- ``w4a8_gemv``: exact int32 accumulation of int8 x int4, then
+  ``(float(acc) * xs) * s``. Every partial sum is an integer below 2^24 in
+  magnitude (|acc| <= 127 * 7 * 16384 at the widest row), so the plain
+  version's fp32 product is exact too.
+- ``mlp_w4a8``: quant -> gate_up GEMV (bf16 out) -> fp32 tanh-GELU of gate,
+  rounded to the activation dtype, times up -> quant -> down GEMV.
+
+Each kernel wrapper counts its launches in its ``launches`` attribute;
+``q4a8_matmul`` and ``mlp_w4a8`` launch through ``quant_rows`` and
+``w4a8_gemv`` and are counted there.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from paligemma_tpu_torch.ops import _build
+
+# Rows of one fused-MLP call; more rows take the int8 companions
+# (the reference's VMEM budget, kept as the routing rule).
+MLP_FUSED_MAX_ROWS = 64
+
+
+# ---------------------------------------------------------------------------
+# Packing (the port's int4 layout)
+# ---------------------------------------------------------------------------
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] (..., D) -> packed (..., D/2) uint8."""
+    *lead, d = q.shape
+    if d % 8:
+        raise ValueError(f"pack_int4: the packed dim {d} must be a multiple of 8")
+    g = q.reshape(*lead, d // 8, 2, 4).to(torch.int16)  # (..., group, lo|hi, k)
+    byte = (g[..., 0, :] & 15) | ((g[..., 1, :] & 15) << 4)
+    return byte.to(torch.uint8).reshape(*lead, d // 2)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_int4``: (..., D/2) uint8 -> int8 values (..., D)."""
+    *lead, h = packed.shape
+    b = packed.reshape(*lead, h // 4, 1, 4).to(torch.int16)
+    lo = ((b & 15) ^ 8) - 8
+    hi = ((b >> 4) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, 2 * h).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Per-row int8 activation quantization (optionally with the GeGLU prologue)
+# ---------------------------------------------------------------------------
+
+
+def geglu(gu: torch.Tensor) -> torch.Tensor:
+    """(..., 2I) fused [gate | up] -> (..., I): fp32 tanh-GELU of gate,
+    rounded to gu.dtype, times up in gu.dtype."""
+    gate, up = gu.chunk(2, dim=-1)
+    return F.gelu(gate.float(), approximate="tanh").to(gu.dtype) * up
+
+
+def quantize_rows_s8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) -> (xq int8 (..., D), xs fp32 (...)): per-row symmetric int8.
+
+    Both divisions are IEEE divisions of two tensors: on CUDA, PyTorch turns
+    a division by a Python scalar into a product with its reciprocal, which
+    can move ``xs`` by an ulp from the kernel's (and the reference's)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1).clamp_min(1e-8)
+    xs = amax / torch.full_like(amax, 127.0)
+    xq = torch.round(xf / xs[..., None]).to(torch.int8)
+    return xq, xs
+
+
+def quant_rows_plain(x: torch.Tensor, geglu_prologue: bool = False):
+    """Plain version of ``quant_rows`` (any device)."""
+    return quantize_rows_s8(geglu(x) if geglu_prologue else x)
+
+
+def quant_rows(x: torch.Tensor, geglu_prologue: bool = False):
+    """(M, D) -> (xq (M, D) int8, xs (M,) fp32); with ``geglu_prologue`` the
+    input is a fused (M, 2I) [gate | up] row and the output covers (M, I)."""
+    if x.device.type == "cpu":
+        return quant_rows_plain(x, geglu_prologue)
+    m, width = x.shape
+    d = width // 2 if geglu_prologue else width
+    _check_rows("quant_rows", x, d_multiple=16 if geglu_prologue else 8)
+    xq = torch.empty((m, d), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    rc = lib.pg_quant_rows(
+        x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, d, x.stride(0), int(geglu_prologue),
+        _stream(x),
+    )
+    _build.check(lib, "quant_rows", rc)
+    quant_rows.launches += 1
+    return xq, xs
+
+
+quant_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only matmul
+# ---------------------------------------------------------------------------
+
+
+def q8_matmul_plain(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """Plain version of ``q8_matmul`` (any device)."""
+    y = (x.float() @ q.float().t()) * scale
+    return y.to(out_dtype or x.dtype)
+
+
+def q8_matmul(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """x (..., D) @ int8 (O, D)^T times the per-row scales (O,) -> (..., O)
+    in ``out_dtype`` (default x.dtype; the kernel writes bf16 or fp32)."""
+    if x.device.type == "cpu":
+        return q8_matmul_plain(x, q, scale, out_dtype)
+    out_dtype = out_dtype or x.dtype
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d)
+    m, o = x2.shape[0], q.shape[0]
+    _check_rows("q8_matmul", x2, d_multiple=16)
+    _check_weight("q8_matmul", x2, q, scale, torch.int8, (o, d))
+    out = torch.empty((m, o), dtype=_out_dtype("q8_matmul", out_dtype), device=x.device)
+    lib = _build.load_library()
+    rc = lib.pg_q8_matmul(
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, o, d, x2.stride(0),
+        int(out.dtype == torch.float32), _stream(x),
+    )
+    _build.check(lib, "q8_matmul", rc)
+    q8_matmul.launches += 1
+    return out.reshape(*lead, o)
+
+
+q8_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# w4a8: int8 activations x packed int4 weights
+# ---------------------------------------------------------------------------
+
+
+def w4a8_gemv_plain(
+    xq: torch.Tensor, xs: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Plain version of ``w4a8_gemv`` (any device); the fp32 product is
+    exact (integer partial sums below 2^24)."""
+    acc = xq.float() @ unpack_int4(packed).float().t()
+    return (acc * xs[:, None] * scale).to(out_dtype)
+
+
+def w4a8_gemv(
+    xq: torch.Tensor, xs: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """xq (M, D) int8 with row scales xs (M,) @ packed int4 (O, D/2)^T with
+    row scales (O,) -> (M, O) in ``out_dtype`` (bf16 or fp32), one launch."""
+    if xq.device.type == "cpu":
+        return w4a8_gemv_plain(xq, xs, packed, scale, out_dtype)
+    m, d = xq.shape
+    o = packed.shape[0]
+    if xq.dtype != torch.int8 or xs.dtype != torch.float32 or xs.shape != (m,):
+        raise TypeError("w4a8_gemv: xq (M, D) int8 and xs (M,) fp32 required")
+    if d % 32:
+        raise ValueError(f"w4a8_gemv: D = {d} must be a multiple of 32 (16-byte packed rows)")
+    if not (xq.is_contiguous() and xs.is_contiguous()):
+        raise ValueError("w4a8_gemv: xq and xs must be contiguous")
+    _check_weight("w4a8_gemv", xq, packed, scale, torch.uint8, (o, d // 2))
+    out = torch.empty((m, o), dtype=_out_dtype("w4a8_gemv", out_dtype), device=xq.device)
+    lib = _build.load_library()
+    rc = lib.pg_w4a8_gemv(
+        xq.data_ptr(), xs.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        m, o, d, int(out.dtype == torch.float32), _stream(xq),
+    )
+    _build.check(lib, "w4a8_gemv", rc)
+    w4a8_gemv.launches += 1
+    return out
+
+
+w4a8_gemv.launches = 0
+
+
+def q4a8_matmul_plain(
+    x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version of ``q4a8_matmul`` (any device)."""
+    *lead, d = x.shape
+    xq, xs = quant_rows_plain(x.reshape(-1, d))
+    y = w4a8_gemv_plain(xq, xs, packed, scale, out_dtype or x.dtype)
+    return y.reshape(*lead, packed.shape[0])
+
+
+def q4a8_matmul(
+    x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """x (..., D) -> per-row int8 -> @ packed int4 (O, D/2)^T -> (..., O) in
+    ``out_dtype`` (default x.dtype). Port of ``q4a8_matmul_tiled`` (and of
+    ``q4a8_matmul``: the port has one w4a8 layout)."""
+    if x.device.type == "cpu":
+        return q4a8_matmul_plain(x, packed, scale, out_dtype)
+    *lead, d = x.shape
+    xq, xs = quant_rows(x.reshape(-1, d))
+    y = w4a8_gemv(xq, xs, packed, scale, out_dtype or x.dtype)
+    return y.reshape(*lead, packed.shape[0])
+
+
+def mlp_w4a8_plain(
+    x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
+    dn_packed: torch.Tensor, dn_scale: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of ``mlp_w4a8`` (any device)."""
+    *lead, d = x.shape
+    xq, xs = quant_rows_plain(x.reshape(-1, d))
+    gu = w4a8_gemv_plain(xq, xs, gu_packed, gu_scale, x.dtype)
+    hq, hs = quant_rows_plain(gu, geglu_prologue=True)
+    y = w4a8_gemv_plain(hq, hs, dn_packed, dn_scale, x.dtype)
+    return y.reshape(*lead, dn_packed.shape[0])
+
+
+def mlp_w4a8(
+    x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor,
+    dn_packed: torch.Tensor, dn_scale: torch.Tensor,
+) -> torch.Tensor:
+    """GeGLU MLP ``down(gelu_tanh(gate(x)) * up(x))`` with both weights in
+    w4a8: four launches on one stream (quant_rows, gate_up GEMV into a
+    (M, 2I) scratch, quant_rows with the GeGLU prologue, down GEMV). Port of
+    ``mlp_w4a8`` and ``mlp_w4a8_stacked`` (a layer of a stacked tensor is a
+    view here, so one function serves both)."""
+    if x.device.type == "cpu":
+        return mlp_w4a8_plain(x, gu_packed, gu_scale, dn_packed, dn_scale)
+    *lead, d = x.shape
+    xq, xs = quant_rows(x.reshape(-1, d))
+    gu = w4a8_gemv(xq, xs, gu_packed, gu_scale, x.dtype)
+    hq, hs = quant_rows(gu, geglu_prologue=True)
+    y = w4a8_gemv(hq, hs, dn_packed, dn_scale, x.dtype)
+    return y.reshape(*lead, dn_packed.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Checks shared by the wrappers
+# ---------------------------------------------------------------------------
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _out_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the kernel writes bf16 or fp32, not {dtype}")
+    return dtype
+
+
+def _check_rows(name: str, x: torch.Tensor, d_multiple: int) -> None:
+    """A 2-d bf16 activation on a CUDA device with 16-byte aligned rows."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: activations must be on a CUDA device, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bf16 activations, got {x.dtype}")
+    if x.dim() != 2 or x.stride(-1) != 1:
+        raise ValueError(f"{name}: rows with a unit stride required")
+    if x.shape[-1] % d_multiple or x.stride(0) % 8 or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: the row width ({x.shape[-1]}) must be a multiple of {d_multiple} "
+            "and rows 16-byte aligned"
+        )
+
+
+def _check_weight(name, x, w, scale, dtype, shape) -> None:
+    if w.device != x.device or scale.device != x.device:
+        raise ValueError(f"{name}: weights must be on the activations' device {x.device}")
+    if w.dtype != dtype or tuple(w.shape) != tuple(shape) or not w.is_contiguous():
+        raise ValueError(
+            f"{name}: weight must be contiguous {dtype} of shape {tuple(shape)}, "
+            f"got {w.dtype} {tuple(w.shape)}"
+        )
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name}: the weight must be 16-byte aligned")
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (shape[0],) or not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be contiguous fp32 of shape ({shape[0]},)")
+
+
+def launch_counts() -> dict:
+    return {
+        "q8_matmul": q8_matmul.launches,
+        "w4a8_gemv": w4a8_gemv.launches,
+        "quant_rows": quant_rows.launches,
+    }
+
+
+def reset_launch_counts() -> None:
+    for fn in (q8_matmul, w4a8_gemv, quant_rows):
+        fn.launches = 0

@@ -65,7 +65,7 @@ def state_dict_from_jax(tree: Tree) -> Dict[str, np.ndarray]:
 
 
 def from_jax_params(
-    tree: Tree, cfg: PaliGemmaConfig, device="cpu", dtype: torch.dtype = torch.float32
+    tree: Tree, cfg: PaliGemmaConfig, device="cuda", dtype: torch.dtype = torch.float32
 ) -> PaliGemma:
     """A ``PaliGemma`` on ``device`` in ``dtype`` holding the JAX tree's weights."""
     model = empty_model(cfg, device, dtype)

@@ -2,8 +2,9 @@
 
     python -m pytest -m gpu tests/test_torch_cuda.py
 
-Each kernel is held to its plain version on the same bf16 inputs (two bf16
-ulps, see chip_smoke.py), and a tiny model's kernel path to its plain path.
+Each kernel is held to its plain version on the same inputs (two bf16 ulps,
+see chip_smoke.py; the integer stages exactly), and a tiny model's kernel
+path to its plain path, in bf16 and in the int8 and w4a8 modes.
 """
 import dataclasses
 
@@ -11,9 +12,11 @@ import pytest
 import torch
 
 import paligemma_tpu_torch
-from paligemma_tpu_torch import generation
+from paligemma_tpu_torch import generation, quantization
 from paligemma_tpu_torch.models import paligemma
 from paligemma_tpu_torch.ops import cuda_attention as ca
+from paligemma_tpu_torch.ops import quant
+from paligemma_tpu_torch.ops.kernels import PLAIN
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 2.0**-7, 2e-3
@@ -77,5 +80,108 @@ def test_tiny_model_kernel_path_matches_plain_path(cuda):
     ids = torch.cat([torch.full((1, n_img), cfg.image_token_index), torch.arange(2, 9)[None]], 1).to(cuda)
     pix = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)).to(cuda, torch.bfloat16)
     got, _ = generation.generate(model, ids, pix, 6, -1)
-    want, _ = generation.generate(model, ids, pix, 6, -1, attn=ca.PLAIN)
+    want, _ = generation.generate(model, ids, pix, 6, -1, fns=PLAIN)
     assert got[0] == want[0]
+
+
+# ---------------------------------------------------------------------------
+# int8 and w4a8 kernels (ops/quant.py)
+# ---------------------------------------------------------------------------
+
+
+def _int8(gen, shape, dev, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.parametrize("m,o,d", [
+    (1, 2560, 2048),    # decode qkv, GEMV tiling
+    (3, 1000, 336),     # ragged O and D against the tiles
+    (64, 2048, 2048),   # the largest GEMV call
+    (9, 2048, 16384),   # GEMV in passes over D, rows 8 at a time
+    (276, 2560, 2048),  # prefill, GEMM tiling
+    (130, 200, 48),     # ragged GEMM edges
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_q8_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = _rand(gen, (m, d), cuda)
+    q, s = _int8(gen, (o, d), cuda), torch.rand(o, generator=gen, device=cuda) * 0.01 + 1e-3
+    before = quant.q8_matmul.launches
+    out = quant.q8_matmul(x, q, s, out_dtype)
+    torch.cuda.synchronize()
+    assert quant.q8_matmul.launches == before + 1 and out.dtype == out_dtype
+    torch.testing.assert_close(out.float(), quant.q8_matmul_plain(x, q, s, out_dtype).float(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("geglu", [False, True])
+@pytest.mark.parametrize("m,d", [(1, 2048), (5, 16384), (70, 200)])
+def test_quant_rows_kernel_is_bit_identical_to_plain(cuda, m, d, geglu):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _rand(gen, (m, 2 * d if geglu else d), cuda)
+    x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device=cuda)  # exact ties at xs = 1
+    xq, xs = quant.quant_rows(x, geglu)
+    torch.cuda.synchronize()
+    pq, ps = quant.quant_rows_plain(x, geglu)
+    assert torch.equal(xs, ps)
+    # The GeGLU prologue's tanh may differ from PyTorch's by an fp32 ulp,
+    # which can move one value across a rounding step.
+    assert int((xq.int() - pq.int()).abs().max()) <= (1 if geglu else 0)
+
+
+@pytest.mark.parametrize("m,o,d", [
+    (1, 32768, 2048), (1, 2048, 16384), (7, 1000, 96), (100, 520, 64),
+    (13, 2048, 16384),  # passes over D, rows 8 at a time
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_w4a8_gemv_kernel_matches_plain(cuda, m, o, d, out_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xq, xs = _int8(gen, (m, d), cuda), torch.rand(m, generator=gen, device=cuda) + 0.01
+    packed = quant.pack_int4(_int8(gen, (o, d), cuda, -7, 8))
+    s = torch.rand(o, generator=gen, device=cuda) * 0.01 + 1e-3
+    out = quant.w4a8_gemv(xq, xs, packed, s, out_dtype)
+    torch.cuda.synchronize()
+    # Exact integer sums and the same fp32 epilogue: bit-identical.
+    assert torch.equal(out, quant.w4a8_gemv_plain(xq, xs, packed, s, out_dtype))
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+def test_mlp_w4a8_kernels_match_plain(cuda, m):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    d, inter = 2048, 16384
+    x = _rand(gen, (1, m, d), cuda)
+    gu = quant.pack_int4(_int8(gen, (2 * inter, d), cuda, -7, 8))
+    dn = quant.pack_int4(_int8(gen, (d, inter), cuda, -7, 8))
+    gs = torch.rand(2 * inter, generator=gen, device=cuda) * 0.01 + 1e-3
+    ds = torch.rand(d, generator=gen, device=cuda) * 0.01 + 1e-3
+    before = quant.launch_counts()
+    out = quant.mlp_w4a8(x, gu, gs, dn, ds)
+    torch.cuda.synchronize()
+    after = quant.launch_counts()
+    assert after["quant_rows"] - before["quant_rows"] == 2
+    assert after["w4a8_gemv"] - before["w4a8_gemv"] == 2
+    torch.testing.assert_close(out, quant.mlp_w4a8_plain(x, gu, gs, dn, ds), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode,lm_head_w4", [("int8", False), ("w4a8", False), ("w4a8", True)])
+def test_tiny_quantized_model_kernel_path_matches_plain_path(cuda, mode, lm_head_w4):
+    cfg = paligemma_tpu_torch.tiny_config()
+    # The kernels take head_dim in multiples of 8: widen tiny SigLIP's 6 to 8.
+    cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, hidden_size=32, intermediate_size=64))
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    model = quantization.quantize_params(model, llm_only=False, mode=mode, lm_head_w4=lm_head_w4)
+    n_img = cfg.vision_config.num_image_tokens
+    ids = torch.cat([torch.full((1, n_img), cfg.image_token_index), torch.arange(2, 9)[None]], 1).to(cuda)
+    pix = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)).to(cuda, torch.bfloat16)
+    before = quant.launch_counts()
+    got, _ = generation.generate(model, ids, pix, 6, -1)
+    launched = {k: v - before[k] for k, v in quant.launch_counts().items()}
+    want, _ = generation.generate(model, ids, pix, 6, -1, fns=PLAIN)
+    assert got[0] == want[0]
+    assert launched["q8_matmul"] > 0
+    if mode == "w4a8":
+        # Six forwards of at most 64 rows: two quant_rows and two w4a8_gemv
+        # launches per fused MLP, and one of each per 4-bit lm_head row.
+        want_w4 = 2 * cfg.text_config.num_hidden_layers * 6 + (6 if lm_head_w4 else 0)
+        assert launched["quant_rows"] == launched["w4a8_gemv"] == want_w4

@@ -22,6 +22,7 @@ from paligemma_tpu_torch.models import gemma as tgemma
 from paligemma_tpu_torch.models import paligemma as tpg
 from paligemma_tpu_torch.models import siglip as tsig
 from paligemma_tpu_torch.ops import cuda_attention as ca
+from paligemma_tpu_torch.ops.kernels import PLAIN
 from paligemma_tpu_torch.utils.convert import from_jax_params
 
 LOGIT_TOL = 1e-4
@@ -33,7 +34,7 @@ def pair():
     jcfg = j_tiny_config()
     jparams = jpg.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tcfg = paligemma_tpu_torch.tiny_config()
-    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg)
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), tcfg, device="cpu")
     return jcfg, jparams, tcfg, model
 
 
@@ -128,9 +129,9 @@ def test_prefill_and_decode_logits_match_jax(pair, inputs, full_logits):
 
 def test_init_params_scheme_and_seed():
     cfg = paligemma_tpu_torch.tiny_config()
-    a = tpg.init_params(cfg, 3)
-    b = tpg.init_params(cfg, 3)
-    c = tpg.init_params(cfg, 4)
+    a = tpg.init_params(cfg, 3, device="cpu")
+    b = tpg.init_params(cfg, 3, device="cpu")
+    c = tpg.init_params(cfg, 4, device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["llm.embed"], sc["llm.embed"])
@@ -167,8 +168,8 @@ def test_prefill_needs_an_empty_cache_and_a_free_slot(pair, inputs):
 
 
 def test_model_functions_take_the_attention_functions_explicitly(pair, inputs):
-    """``attn`` selects the attention functions; on the CPU both routes are
-    the plain versions and agree exactly."""
+    """``fns`` selects the kernel functions; on the CPU both routes are the
+    plain versions and agree exactly."""
     model = pair[3]
     ids, pix = map(torch.from_numpy, inputs)
     calls = {"flash": 0, "decode": 0}
@@ -182,8 +183,9 @@ def test_model_functions_take_the_attention_functions_explicitly(pair, inputs):
         return ca.decode_attention_plain(*a, **k)
 
     cache = tgen.make_cache(model, 1, ids.shape[1], 2)
-    lg, cache = tpg.prefill(model, ids, pix, cache, attn=ca.AttentionFns(flash, decode))
-    tpg.decode_step(model, torch.tensor([[7]]), cache, attn=ca.AttentionFns(flash, decode))
+    fns = PLAIN._replace(flash=flash, decode=decode)
+    lg, cache = tpg.prefill(model, ids, pix, cache, fns=fns)
+    tpg.decode_step(model, torch.tensor([[7]]), cache, fns=fns)
     n_vis = model.cfg.vision_config.num_hidden_layers
     n_llm = model.cfg.text_config.num_hidden_layers
     assert calls == {"flash": n_vis + n_llm, "decode": n_llm}
@@ -193,6 +195,6 @@ def test_model_functions_take_the_attention_functions_explicitly(pair, inputs):
 
 def test_kv_cache_layout():
     cfg = paligemma_tpu_torch.tiny_config().text_config
-    cache = tgemma.init_cache(cfg, 2, 11, torch.float32)
+    cache = tgemma.init_cache(cfg, 2, 11, torch.float32, device="cpu")
     assert tuple(cache.k.shape) == (cfg.num_hidden_layers, 2, 11, cfg.num_key_value_heads, cfg.head_dim)
     assert cache.length == 0 and cache.max_len == 11 and cache.valid.dtype == torch.int32

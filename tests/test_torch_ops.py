@@ -16,6 +16,7 @@ from paligemma_tpu.ops.pallas_attention import decode_attention as j_decode
 from paligemma_tpu.ops.pallas_attention import flash_attention as j_flash
 from paligemma_tpu_torch.ops import attention as tattn
 from paligemma_tpu_torch.ops import cuda_attention as ca
+from paligemma_tpu_torch.ops.kernels import KERNELS, PLAIN
 from paligemma_tpu_torch.ops import norms as tnorms
 from paligemma_tpu_torch.ops import rope as trope
 from paligemma_tpu_torch.ops.sampling import greedy
@@ -160,7 +161,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(ca.decode_attention(q[:, :1], k, v, 9),
                        ca.decode_attention_plain(q[:, :1], k, v, 9))
     assert ca.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
-    assert ca.KERNELS.flash is ca.flash_attention and ca.PLAIN.decode is ca.decode_attention_plain
+    assert KERNELS.flash is ca.flash_attention and PLAIN.decode is ca.decode_attention_plain
 
 
 def test_non_cpu_tensor_never_falls_back_to_the_plain_version():

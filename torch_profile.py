@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Device time of the PyTorch port's serving path, by kernel, on one CUDA card.
+
+    python3 torch_profile.py [--out PATH]
+
+PaliGemma-3B-224 with seeded random weights made on the card and the first
+request of ``chip_smoke.py`` (its ``build_model`` and ``_request``). For each
+serving arm (the bf16 model, and each of chip_smoke's ``QUANT_ARMS``: the
+model quantized on the card by ``quantization.quantize_params``), after a
+warm-up:
+
+- host-clock ms of one ``generation.prefill`` and ms/token of one
+  ``generation.decode_steps`` chunk of ``STEPS`` tokens, unprofiled;
+- the same two calls under ``torch.profiler`` (CUPTI): device time = the sum
+  of the CUDA kernels' own time, by kernel name and by group (the port's
+  kernels, cuBLAS, PyTorch's elementwise and reductions), per prefill and per
+  decode token, with the launches of each.
+
+Prints one summary line per arm and group, and the whole result as one JSON
+line (also written to ``--out`` when given). Needs a CUDA device; exits 2
+without one.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+STEPS = 15  # decode tokens per profiled chunk
+# Kernel-name substrings of each group, first match wins.
+GROUPS = [
+    ("q8_matmul", ("q8_gemv_kernel", "q8_gemm_kernel")),
+    ("w4a8_gemv", ("w4a8_gemv_kernel",)),
+    ("quant_rows", ("quant_rows_kernel",)),
+    ("flash_attention", ("flash_attention_kernel",)),
+    ("decode_attention", ("decode_",)),
+    ("cublas", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")),
+]
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "elementwise_and_reductions"
+
+
+def device_kernels(prof):
+    """{kernel name: (device us, launches)} of the CUDA kernels in a trace."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            out[evt.key] = (evt.self_device_time_total, evt.count)
+    return out
+
+
+def summarize(kernels, per: int):
+    groups = collections.defaultdict(lambda: [0.0, 0])
+    for name, (us, n) in kernels.items():
+        g = groups[group_of(name)]
+        g[0] += us / 1e3 / per
+        g[1] += n / per
+    total = sum(g[0] for g in groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "device_ms": total,
+        "launches": sum(g[1] for g in groups.values()),
+        "groups": {k: {"device_ms": v[0], "launches": v[1]} for k, v in sorted(groups.items())},
+        "top_kernels": [{"name": k[:120], "device_ms": us / 1e3 / per, "launches": n / per}
+                        for k, (us, n) in top],
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None, help="also write the JSON result to this file")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from paligemma_tpu_torch import generation, quantization
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _, _, proc, model = chip_smoke.build_model(torch)
+    ids, pix = chip_smoke._request(torch, proc, 0)
+    n = STEPS
+
+    def prefill(m):
+        cache = generation.make_cache(m, 1, ids.shape[1], n + 1)
+        logits, cache = generation.prefill(m, ids, pix, cache)
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
+
+    result = {"device": smi, "prompt_len": int(ids.shape[1]), "steps": n, "arms": {}}
+    for arm, mode, lm_head_w4 in [("bf16", None, False)] + chip_smoke.QUANT_ARMS:
+        m = model if mode is None else quantization.quantize_params(model, mode=mode, lm_head_w4=lm_head_w4)
+        tok0, cache = prefill(m)  # warm-up
+        generation.decode_steps(m, tok0, cache, 3)
+        torch.cuda.synchronize()
+
+        t0 = time.perf_counter()
+        tok0, cache = prefill(m)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        toks, _, _ = generation.decode_steps(m, tok0, cache, n)
+        toks.tolist()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof_p:
+            tok0, cache = prefill(m)
+            torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof_d:
+            generation.decode_steps(m, tok0, cache, n)[0].tolist()
+            torch.cuda.synchronize()
+        rec = {
+            "prefill_host_ms": prefill_ms, "decode_host_ms_per_token": decode_ms,
+            "prefill": summarize(device_kernels(prof_p), 1),
+            "decode_per_token": summarize(device_kernels(prof_d), n),
+        }
+        rec["prefill"]["busy_share_of_host_ms"] = rec["prefill"]["device_ms"] / prefill_ms
+        rec["decode_per_token"]["busy_share_of_host_ms"] = rec["decode_per_token"]["device_ms"] / decode_ms
+        result["arms"][arm] = rec
+        for phase, host in (("prefill", prefill_ms), ("decode_per_token", decode_ms)):
+            s = rec[phase]
+            groups = " ".join(f"{k} {v['device_ms']:.4f} ({v['launches']:.0f})" for k, v in s["groups"].items())
+            print(f"[{arm}] {phase}: host {host:.3f} ms | device {s['device_ms']:.4f} ms, "
+                  f"{s['launches']:.0f} launches | {groups}", flush=True)
+        if m is not model:
+            del m
+            torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
