@@ -12,23 +12,30 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    card, in bf16, at the main-path shapes, at the 896-px preset's lengths
    (SigLIP T=S=4096, prefill T=S=4110, a 4128-position cache), and at edge
    cases (batch 2 with per-row valid lengths and a window, ragged T/S, fully
-   masked tiles, poisoned K/V past the valid length, head_dim 72). The int8
-   and w4a8 kernels (q8_matmul, w4a8_gemv, quant_rows and the mlp_w4a8 they
-   make up) at every decode shape of the 3B model, at 64 and 276 rows, at
-   the flat q4a8_matmul shapes, and at ragged rows and widths.
+   masked tiles, poisoned K/V past the valid length, head_dim 72); decode
+   attention over an int8 cache at S = 308, 1100 and 4128 with a poisoned
+   tail, bit-identical to the bf16 kernel over the dequantized cache. The
+   quant kernels (q8_matmul, q4_matmul, w4a8_gemv, quant_rows and the
+   mlp_w4a8 they make up) at every decode shape of the 3B model, at 64 and
+   276 rows, at the flat q4a8_matmul shapes, and at ragged rows and widths;
+   the int8 x int8 projection (torch._int_mm) against its exact plain
+   version.
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
    weights made on the card, the byte-tokenizer processor, and three
    requests answered by ``generation.generate`` (32 new tokens each), with
    the kernels' launch counts, prefill ms and decode ms/token per request;
    then the first request's decode again as one ``decode_steps`` chunk,
    which must give the same tokens; and the peak device memory. Then the
-   model is quantized on the card in each serving arm (int8, w4a8, w4a8 with
-   the 4-bit lm_head) and the first request is answered again in each, with
-   every kernel's launch count held to the count the code implies.
+   model is quantized on the card in each serving arm (``QUANT_ARMS``: int8,
+   w4a8, w4a8 with the 4-bit lm_head, int4, int8 with the int8 KV cache,
+   int8 with the int8 x int8 prefill) and the first request is answered
+   again in each, with every kernel's launch count (and the int8 x int8
+   calls) held to the count the code implies.
 5. Kernel path vs plain path: the first request again with the plain
    kernel functions, in bf16 and in each quantized arm; the prefill's
-   last-position logits must agree within the stated tolerance and the
-   first greedy token must be identical.
+   last-position logits and those of the next few decode steps (fed the
+   kernel path's greedy tokens) must agree within the stated tolerance and
+   the first greedy token must be identical.
 6. Timing: the device time per call of each kernel and its plain version at
    the main-path shapes (CUDA events around CUDA-graph replays, so host
    dispatch is not timed), beside its bound (the larger of its bytes over
@@ -65,8 +72,16 @@ KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 2e-3
 # per-call differences pass through 45 residual layers in bf16; the bar is
 # 2% of the largest logit magnitude (a bf16 value carries 2^-8 = 0.4%).
 LOGIT_REL_TOL = 0.02
-# The quantized serving arms: (name, quantize_params mode, lm_head_w4).
-QUANT_ARMS = [("int8", "int8", False), ("w4a8", "w4a8", False), ("w4a8+lm_head_w4", "w4a8", True)]
+DECODE_CHECK_STEPS = 3  # decode steps held to the plain path after the prefill
+# The quantized serving arms: (name, quantize_params arguments, int8 KV cache).
+QUANT_ARMS = [
+    ("int8", {"mode": "int8"}, False),
+    ("w4a8", {"mode": "w4a8"}, False),
+    ("w4a8+lm_head_w4", {"mode": "w4a8", "lm_head_w4": True}, False),
+    ("int4", {"mode": "int4"}, False),
+    ("int8+kv_int8", {"mode": "int8"}, True),
+    ("int8+prefill_a8", {"mode": "int8", "prefill_a8": True}, False),
+]
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W) for the
 # bound of each timed call.
 HBM_BYTES_PER_S = 3.35e12
@@ -187,6 +202,31 @@ def phase_kernels(torch):
         vt = torch.tensor(valid, dtype=torch.int32, device=dev)
         run_case("decode_attention", name, ca.decode_attention, ca.decode_attention_plain,
                  (q, kc, vc, vt), dict(kw, scale=d**-0.5), poison)
+
+    # The int8 cache: bit for bit the bf16 kernel over the cache dequantized
+    # as the reference reads it, within the bar of the plain version, and
+    # blind to a poisoned tail (values and scales) past the valid length.
+    from paligemma_tpu_torch.models.gemma import quantize_kv_rows
+
+    for s_len, valid in ((308, 292), (1100, 700), (4128, 4100)):
+        q = _rand(torch, gen, (1, 1, 8, 256), dev)
+        (kq, ks), (vq, vs) = (quantize_kv_rows(_rand(torch, gen, (3, 1, s_len, 1, 256), dev)) for _ in range(2))
+        kq, ks, vq, vs = kq[1], ks[1], vq[1], vs[1]  # a layer of a stacked cache
+        vt = torch.tensor([valid], dtype=torch.int32, device=dev)
+        kw = dict(scale=256**-0.5, k_scale=ks, v_scale=vs)
+        out = ca.decode_attention(q, kq, vq, vt, **kw)
+        deq = [ca.dequantize_cache(c, c_s, torch.bfloat16) for c, c_s in ((kq, ks), (vq, vs))]
+        same_as_bf16 = torch.equal(out, ca.decode_attention(q, *deq, vt, scale=256**-0.5))
+        err, ok = _close(torch, out, ca.decode_attention_plain(q, kq, vq, vt, **kw))
+        for c, c_s in ((kq, ks), (vq, vs)):
+            c[:, valid:], c_s[:, valid:] = 127, 1e4
+        same_poisoned = torch.equal(ca.decode_attention(q, kq, vq, vt, **kw), out)
+        torch.cuda.synchronize()
+        log(f"[kernel] {'decode_attention':16s} {f'int8 cache S={s_len} valid={valid} + poison':44s} "
+            f"max_abs_err {err:.3e} | bit-identical to the dequantized bf16 cache: {same_as_bf16} "
+            f"| poisoned tail unchanged: {same_poisoned}")
+        check(ok and same_as_bf16 and same_poisoned, f"int8-cache decode S={s_len}: kernel disagrees")
+        max_err["decode_attention"] = max(max_err["decode_attention"], err)
     return max_err
 
 
@@ -197,7 +237,7 @@ def phase_quant_kernels(torch):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    max_err = {"q8_matmul": 0.0, "w4a8_gemv": 0.0, "quant_rows": 0.0, "mlp_w4a8": 0.0}
+    max_err = {"q8_matmul": 0.0, "q4_matmul": 0.0, "w4a8_gemv": 0.0, "quant_rows": 0.0, "mlp_w4a8": 0.0}
 
     def ints(shape, lo, hi):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
@@ -240,6 +280,43 @@ def phase_quant_kernels(torch):
     q, s = ints((300, 256), -127, 128), scales(300, 256, 73.0)
     held("q8_matmul", "strided rows M=5 O=300 D=256 (stride 512)",
          quant.q8_matmul(wide[:, 128:384], q, s), quant.q8_matmul_plain(wide[:, 128:384], q, s))
+
+    q4_cases = [
+        # name, m, o, d, fp32 out
+        ("decode qkv M=1 O=2560 D=2048", 1, 2560, 2048, False),
+        ("decode o M=1 O=2048 D=2048", 1, 2048, 2048, False),
+        ("decode gate_up M=1 O=32768 D=2048", 1, 32768, 2048, False),
+        ("decode down M=1 O=2048 D=16384", 1, 2048, 16384, False),
+        ("GEMV M=64 O=2560 D=2048", 64, 2560, 2048, False),
+        ("GEMV M=9 O=2048 D=16384 (passes over D)", 9, 2048, 16384, False),
+        ("prefill GEMM M=276 O=2560 D=2048", 276, 2560, 2048, False),
+        ("prefill GEMM M=276 O=32768 D=2048", 276, 32768, 2048, False),
+        ("prefill GEMM M=276 O=2048 D=16384", 276, 2048, 16384, False),
+        ("GEMM M=276 O=2048 D=2048 fp32", 276, 2048, 2048, True),
+        ("ragged GEMV M=3 O=1000 D=352", 3, 1000, 352, False),
+        ("ragged GEMM M=130 O=200 D=64", 130, 200, 64, False),
+    ]
+    for name, m, o, d, f32 in q4_cases:
+        x, packed = _rand(torch, gen, (m, d), dev), quant.pack_int4(ints((o, d), -7, 8))
+        s = scales(o, d, 4.3)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        held("q4_matmul", name, quant.q4_matmul(x, packed, s, out_dtype),
+             quant.q4_matmul_plain(x, packed, s, out_dtype))
+    packed, s = quant.pack_int4(ints((300, 256), -7, 8)), scales(300, 256, 4.3)
+    held("q4_matmul", "strided rows M=5 O=300 D=256 (stride 512)",
+         quant.q4_matmul(wide[:, 128:384], packed, s), quant.q4_matmul_plain(wide[:, 128:384], packed, s))
+
+    # The int8 x int8 projection (prefill_a8): torch._int_mm, not a kernel of
+    # the port; exact integer sums and the same epilogue as its plain version.
+    for name, m, o, d in (("a8 prefill qkv M=276 O=2560 D=2048", 276, 2560, 2048),
+                          ("a8 prefill down M=276 O=2048 D=16384", 276, 2048, 16384)):
+        x, q = _rand(torch, gen, (1, m, d), dev), ints((o, d), -127, 128)
+        s = scales(o, d, 73.0)
+        got, ref = quant.a8_matmul(x, q, s), quant.a8_matmul_plain(x, q, s)
+        torch.cuda.synchronize()
+        log(f"[library] {'a8_matmul':15s} {name:44s} bit-identical to the exact plain version: "
+            f"{torch.equal(got, ref)}")
+        check(torch.equal(got, ref), f"a8_matmul {name}: torch._int_mm route disagrees with plain")
 
     rows_cases = [
         # name, m, width, GeGLU prologue
@@ -351,7 +428,7 @@ def _time_rows(torch, kind, rows, library=None):
         bound, bound_by = _bound(nbytes, ops, op_kind)
         lib = "none" if lm is None else f"{lm:.4f}"
         log(f"[time] {kind:16s} {label:52s} device ms/call: kernel {km:.4f} | plain {pm:.4f} | "
-            f"library {lib} | bound {bound:.4f} ({bound_by}) "
+            f"library {lib} | bound {bound:.4g} ({bound_by}) "
             f"(turns: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})")
         by_shape.append({"shape": label, "ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bound,
                          "bound_by": bound_by, "calls_per_main_path_unit": weight})
@@ -384,6 +461,7 @@ def phase_timing(torch, prompt_len):
     and library time; returns {kernel: record}."""
     import torch.nn.functional as F
 
+    from paligemma_tpu_torch.models.gemma import quantize_kv_rows
     from paligemma_tpu_torch.ops import cuda_attention as ca
     from paligemma_tpu_torch.ops import quant
 
@@ -430,8 +508,20 @@ def phase_timing(torch, prompt_len):
                      lambda i, a=(q, kc, vc, vt): ca.decode_attention_plain(*a, scale=256**-0.5),
                      lambda i, a=lib: sdpa(*a, scale=256**-0.5),
                      (*_attention_cost(1, 1, valid, 8, 1, 256), "bf16")))
+    # The int8 cache at the same lengths (the int8+kv_int8 arm's decode; not
+    # in the per-launch mean). No PyTorch call reads an int8 cache: none.
+    for s_len, valid in ((s_main, prompt_len + MAX_NEW_TOKENS // 2), (1100, 1100), (4128, 4128)):
+        (kq, ks), (vq, vs) = (quantize_kv_rows(_rand(torch, gen, (18, 1, s_len, 1, 256), dev)) for _ in range(2))
+        args = (_rand(torch, gen, (1, 1, 8, 256), dev), kq[9], vq[9], torch.tensor([valid], dtype=torch.int32, device=dev))
+        kw = dict(scale=256**-0.5, k_scale=ks[9], v_scale=vs[9])
+        # Bytes: q and out, and the visible int8 K and V rows with their scales.
+        nbytes = 2 * 2 * 8 * 256 + 2 * valid * (256 + 4)
+        rows.append((f"int8 cache decode S={s_len} valid={valid} H=8 Hkv=1 D=256", 0,
+                     lambda i, a=args, k=kw: ca.decode_attention(*a, **k),
+                     lambda i, a=args, k=kw: ca.decode_attention_plain(*a, **k), None,
+                     (nbytes, 4 * 8 * valid * 256, "bf16")))
     result["decode_attention"] = _time_rows(torch, "decode_attention", rows,
-                                            library="F.scaled_dot_product_attention")
+                                            library="F.scaled_dot_product_attention (bf16 cache only)")
 
     # --- q8_matmul: weights cycled through copies that overflow L2 ---
     def q8_row(label, weight, m, o, d, f32=False):
@@ -465,6 +555,52 @@ def phase_timing(torch, prompt_len):
     ], library="F.linear on the weight dequantized to bf16 ahead of time (bf16 out)")
     del q8_row
 
+    # --- q4_matmul ---
+    def q4_row(label, weight, m, o, d):
+        x = _rand(torch, gen, (m, d), dev)
+        qs = _copies(lambda: torch.randint(-7, 8, (o, d), generator=gen, device=dev, dtype=torch.int32),
+                     o * d // 2)
+        ws = [(quant.pack_int4(q.to(torch.int8)), torch.rand(o, generator=gen, device=dev) / (4.3 * math.sqrt(d)))
+              for q in qs]
+        # The library yardstick: torch._weight_int4pack_mm (tinygemm) given
+        # the same int4 values, unsigned (q + 8, its zero point 8), every
+        # 128-column group of a row with the row's scale (rounded to bf16:
+        # it takes bf16 scales) and a zero offset.
+        lib_ws = []
+        for q, (_, sc) in zip(qs, ws):
+            u = q + 8
+            w_tiny = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+            sz = torch.stack([sc.to(torch.bfloat16)[None].expand(d // 128, o),
+                              torch.zeros(d // 128, o, dtype=torch.bfloat16, device=dev)], dim=-1)
+            lib_ws.append((w_tiny, sz.contiguous()))
+        del qs
+        n = len(ws)
+        want = quant.q4_matmul_plain(x, *ws[0])
+        got = torch._weight_int4pack_mm(x, lib_ws[0][0], 128, lib_ws[0][1])
+        torch.cuda.synchronize()
+        check(float((got.float() - want.float()).abs().max()) <= LOGIT_REL_TOL * float(want.float().abs().max()),
+              f"q4 {label}: the library yardstick computes another function")
+        nbytes = 2 * m * d + o * d // 2 + 4 * o + 2 * m * o
+        return (label, weight,
+                lambda i: quant.q4_matmul(x, *ws[i % n]),
+                lambda i: quant.q4_matmul_plain(x, *ws[i % n]),
+                lambda i: torch._weight_int4pack_mm(x, lib_ws[i % n][0], 128, lib_ws[i % n][1]),
+                (nbytes, 2 * m * o * d, "bf16"))
+
+    # Per decode token of the int4 arm: 18 layers x (qkv, o, gate_up, down);
+    # the 64-row GEMV and the prefill GEMMs are reported beside.
+    result["q4_matmul"] = _time_rows(torch, "q4_matmul", [
+        q4_row("decode qkv M=1 O=2560 D=2048", 18, 1, 2560, 2048),
+        q4_row("decode o M=1 O=2048 D=2048", 18, 1, 2048, 2048),
+        q4_row("decode gate_up M=1 O=32768 D=2048", 18, 1, 32768, 2048),
+        q4_row("decode down M=1 O=2048 D=16384", 18, 1, 2048, 16384),
+        q4_row("GEMV M=64 O=32768 D=2048", 0, 64, 32768, 2048),
+        q4_row(f"prefill qkv M={prompt_len} O=2560 D=2048", 0, prompt_len, 2560, 2048),
+        q4_row(f"prefill gate_up M={prompt_len} O=32768 D=2048", 0, prompt_len, 32768, 2048),
+        q4_row(f"prefill down M={prompt_len} O=2048 D=16384", 0, prompt_len, 2048, 16384),
+    ], library="torch._weight_int4pack_mm (tinygemm; the same int4 values, the row scales in bf16)")
+    del q4_row
+
     # --- w4a8_gemv ---
     def w4_row(label, weight, m, o, d, f32=False):
         out_dtype = torch.float32 if f32 else torch.bfloat16
@@ -489,13 +625,28 @@ def phase_timing(torch, prompt_len):
 
     # Per decode token of the w4a8 + lm_head_w4 arm: 18 fused MLPs of two
     # GEMVs each, and the 4-bit lm_head row.
+    def flat_row(label, o, d=2048):
+        """The flat TPU layout's kernel, q4a8_matmul (quant_rows + w4a8_gemv),
+        at its benchmark shapes."""
+        x = _rand(torch, gen, (1, d), dev)
+        ws = _copies(lambda: (
+            quant.pack_int4(torch.randint(-7, 8, (o, d), generator=gen, device=dev,
+                                          dtype=torch.int32).to(torch.int8)),
+            torch.rand(o, generator=gen, device=dev) / (4.3 * math.sqrt(d))), o * d // 2)
+        n = len(ws)
+        return (label, 0, lambda i: quant.q4a8_matmul(x, *ws[i % n]),
+                lambda i: quant.q4a8_matmul_plain(x, *ws[i % n]), None,
+                (2 * d + o * d // 2 + 4 * o + 2 * o, 2 * o * d, "int8"))
+
     result["w4a8_gemv"] = _time_rows(torch, "w4a8_gemv", [
         w4_row("decode gate_up M=1 O=32768 D=2048", 18, 1, 32768, 2048),
         w4_row("decode down M=1 O=2048 D=16384", 18, 1, 2048, 16384),
         w4_row("decode lm_head M=1 O=257152 D=2048 fp32", 1, 1, 257152, 2048, f32=True),
         w4_row("GEMV M=64 O=32768 D=2048", 0, 64, 32768, 2048),
+        flat_row("q4a8_matmul flat qkv M=1 O=2560 D=2048 (2 launches)", 2560),
+        flat_row("q4a8_matmul flat gate_up M=1 O=32768 D=2048 (2 launches)", 32768),
     ], library="torch._int_mm on the weights unpacked to int8 (more than 16 rows only; int32 out)")
-    del w4_row
+    del w4_row, flat_row
 
     # --- quant_rows, and the whole mlp_w4a8 it is part of ---
     def rows_row(label, weight, m, width, geglu):
@@ -531,25 +682,32 @@ def phase_timing(torch, prompt_len):
     return result
 
 
-def _expected_launches(cfg, mode, lm_head_w4, prompt_len, n_dec):
-    """The launches the code implies for one request: per forward of R rows,
-    qkv and o through q8 in every layer; the MLP through mlp_w4a8 (two
-    quant_rows and two w4a8_gemv launches) when w4a8 and R <= the fused
-    row limit, else two q8 projections; one lm_head row per forward, 4-bit
-    (one quant_rows and one w4a8_gemv launch) with lm_head_w4, else q8 on
-    the int8 embedding."""
+def _expected_launches(cfg, qargs, prompt_len, n_dec):
+    """The launches the code implies for one request (and the a8_matmul
+    calls): per forward of R rows, in every layer, int4: qkv, o, gate_up and
+    down through q4; else qkv and o through q8, or through a8_matmul with
+    prefill_a8 and R >= A8_MIN_SEQ; the MLP through mlp_w4a8 (two quant_rows
+    and two w4a8_gemv launches) when w4a8 and R <= the fused row limit, else
+    two more such int8 projections; one lm_head row per forward, 4-bit (one
+    quant_rows and one w4a8_gemv launch) with lm_head_w4, else q8 on the
+    int8 embedding. The int8 cache changes no count."""
     from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS
+    from paligemma_tpu_torch.quantization import A8_MIN_SEQ
 
+    mode, lm_head_w4 = qargs["mode"], qargs.get("lm_head_w4", False)
     n_layers = cfg.text_config.num_hidden_layers
     want = collections.Counter(flash_attention=cfg.vision_config.num_hidden_layers + n_layers,
                                decode_attention=n_layers * n_dec)
     for rows in [prompt_len] + [1] * n_dec:
-        want["q8_matmul"] += 2 * n_layers
-        if mode == "w4a8" and rows <= MLP_FUSED_MAX_ROWS:
+        int8_proj = "a8_matmul" if qargs.get("prefill_a8") and rows >= A8_MIN_SEQ else "q8_matmul"
+        if mode == "int4":
+            want["q4_matmul"] += 4 * n_layers
+        elif mode == "w4a8" and rows <= MLP_FUSED_MAX_ROWS:
+            want[int8_proj] += 2 * n_layers
             want["quant_rows"] += 2 * n_layers
             want["w4a8_gemv"] += 2 * n_layers
         else:
-            want["q8_matmul"] += 2 * n_layers
+            want[int8_proj] += 4 * n_layers
         if lm_head_w4:
             want["quant_rows"] += 1
             want["w4a8_gemv"] += 1
@@ -593,7 +751,7 @@ def _request(torch, proc, i):
             torch.from_numpy(inputs["pixel_values"]).to(dev, torch.bfloat16))
 
 
-def _timed_generate(torch, model, ids, pix, tok):
+def _timed_generate(torch, model, ids, pix, tok, cache_dtype=None):
     """generate() with host stamps: (tokens, cache, prefill ms, decode ms/token)."""
     from paligemma_tpu_torch import generation
 
@@ -602,7 +760,7 @@ def _timed_generate(torch, model, ids, pix, tok):
     t0 = time.perf_counter()
     toks, cache = generation.generate(
         model, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id,
-        step_callback=lambda step: stamps.append(time.perf_counter()),
+        step_callback=lambda step: stamps.append(time.perf_counter()), cache_dtype=cache_dtype,
     )
     torch.cuda.synchronize()
     n_dec = len(toks) - 1
@@ -664,75 +822,96 @@ def phase_quant_arm(torch, model, proc, tok, cfg, arm, bf16_rec, main_counts):
     with the kernels (launch counts held to the code's), then hold its
     prefill logits to the plain path's. Returns the arm's record."""
     from paligemma_tpu_torch import generation, quantization
-    from paligemma_tpu_torch.ops import kernels
+    from paligemma_tpu_torch.models import gemma
+    from paligemma_tpu_torch.ops import kernels, quant
 
-    name, mode, lm_head_w4 = arm
+    name, qargs, kv_int8 = arm
+    cache_dtype = torch.int8 if kv_int8 else None
     ids, pix = bf16_rec["ids"], bf16_rec["pix"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    qmodel = quantization.quantize_params(model, llm_only=True, mode=mode, lm_head_w4=lm_head_w4)
+    qmodel = quantization.quantize_params(model, llm_only=True, **qargs)
     torch.cuda.synchronize()
     llm_gb = quantization.params_bytes(qmodel.llm) / 1e9
     log(f"[{name}] quantized on the card in {time.perf_counter() - t0:.2f} s | decoder + embeddings "
         f"{llm_gb:.3f} GB (bf16 {quantization.params_bytes(model.llm) / 1e9:.3f} GB)")
-    generation.generate(qmodel, ids, pix, 2, -1)  # warm-up: the kernels' first loads
+    generation.generate(qmodel, ids, pix, 2, -1, cache_dtype=cache_dtype)  # warm-up: first loads
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launch_counts()  # the arm's main path, read right after it
-    toks, cache, prefill_ms, decode_ms = _timed_generate(torch, model=qmodel, ids=ids, pix=pix, tok=tok)
-    counts = kernels.launch_counts()
+    toks, cache, prefill_ms, decode_ms = _timed_generate(torch, qmodel, ids, pix, tok, cache_dtype)
+    counts = {**kernels.launch_counts(), "a8_matmul": quant.a8_matmul.calls}
     main_counts.update(counts)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_dec = len(toks) - 1
-    want = _expected_launches(cfg, mode, lm_head_w4, ids.shape[1], n_dec)
+    want = _expected_launches(cfg, qargs, ids.shape[1], n_dec)
     agree = sum(a == b for a, b in zip(toks, bf16_rec["tokens"]))
-    log(f"[{name}] prompt_len {ids.shape[1]} | {len(toks)} tokens | text {tok.decode(toks)!r}")
-    log(f"[{name}] launches {dict(counts)} | expected {dict(want)}")
+    log(f"[{name}] prompt_len {ids.shape[1]} | {len(toks)} tokens | text {tok.decode(toks)!r} | "
+        f"cache {type(cache).__name__} {cache.k.dtype}")
+    log(f"[{name}] launches {dict(counts)} | expected {dict(want)} | a8_matmul calls "
+        f"{counts['a8_matmul']} (torch._int_mm, not a kernel of the port)")
     log(f"[{name}] prefill {prefill_ms:.2f} ms | decode {decode_ms:.3f} ms/token (host clock, per-token "
         f"sync) | peak {peak:.3f} GiB (the bf16 model stays resident) | greedy tokens equal to the "
         f"bf16 arm's: {agree}/{min(len(toks), len(bf16_rec['tokens']))} (reported, not gated: random "
         "weights)")
     check(all(0 <= t < cfg.text_config.vocab_size for t in toks), "token id out of range")
     check(cache.length == ids.shape[1] + n_dec, "cache length does not match the tokens")
-    check(all(counts[k] == want[k] for k in set(counts) | set(want)),
+    check(all(counts.get(k, 0) == want[k] for k in set(counts) | set(want)),
           f"{name}: launch counts differ from the code's")
     check(counts["q8_matmul"] > 0, f"{name}: q8_matmul never launched")
-    if mode == "w4a8":
+    check(isinstance(cache, gemma.QuantKVCache) == kv_int8, f"{name}: the wrong cache")
+    if qargs["mode"] == "w4a8":
         check(counts["w4a8_gemv"] > 0 and counts["quant_rows"] > 0,
               f"{name}: the w4a8 kernels never launched")
+    if qargs["mode"] == "int4":
+        check(counts["q4_matmul"] > 0, f"{name}: q4_matmul never launched")
+    if qargs.get("prefill_a8"):
+        check(counts["a8_matmul"] > 0, f"{name}: the int8 x int8 prefill never ran")
 
-    err, bar, first_k, first_p = _kernel_vs_plain_logits(torch, qmodel, ids, pix)
-    log(f"[{name}] [plain] prefill last-position logits max|kernel - plain| {err:.4e} (bar {bar:.4e}) "
-        f"| first token kernel {first_k} plain {first_p}")
-    check(err <= bar, f"{name}: kernel-path and plain-path logits disagree")
+    errs, bars, first_k, first_p = _kernel_vs_plain_logits(torch, qmodel, ids, pix, cache_dtype)
+    log(f"[{name}] [plain] last-position logits max|kernel - plain| prefill {errs[0]:.4e} (bar "
+        f"{bars[0]:.4e}), decode steps {max(errs[1:]):.4e} (bar {min(bars[1:]):.4e}) | first token "
+        f"kernel {first_k} plain {first_p}")
+    check(all(e <= b for e, b in zip(errs, bars)), f"{name}: kernel-path and plain-path logits disagree")
     check(first_k == first_p == toks[0], f"{name}: first greedy token differs")
     del qmodel
     torch.cuda.empty_cache()
     return {"arm": name, "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms, "peak_gib": peak,
-            "llm_gb": llm_gb, "agree_with_bf16": agree, "max_abs_logit_err": err}
+            "llm_gb": llm_gb, "agree_with_bf16": agree, "max_abs_logit_err": max(errs),
+            "a8_matmul_calls": counts["a8_matmul"]}
 
 
-def _kernel_vs_plain_logits(torch, model, ids, pix):
-    """Prefill's last-position logits through the kernels and through the
-    plain versions: (max abs difference, bar, first token kernel, plain).
-    The plain run must launch no kernel."""
+def _kernel_vs_plain_logits(torch, model, ids, pix, cache_dtype=None):
+    """The last-position logits of the prefill and of DECODE_CHECK_STEPS
+    decode steps (fed the kernel path's greedy tokens) through the kernels
+    and through the plain versions: (max abs difference per forward, bar
+    per forward, first token kernel, plain). The plain run must launch no
+    kernel and run no int8 x int8 product."""
     from paligemma_tpu_torch import generation
-    from paligemma_tpu_torch.ops import kernels
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.ops import kernels, quant
 
-    def last_logits(fns):
-        cache = generation.make_cache(model, 1, ids.shape[1], MAX_NEW_TOKENS)
-        lg, _ = generation.prefill(model, ids, pix, cache, fns)
-        return lg[0, -1].float()
+    def run(fns, feed=None):
+        cache = generation.make_cache(model, 1, ids.shape[1], MAX_NEW_TOKENS, cache_dtype)
+        lg, cache = generation.prefill(model, ids, pix, cache, fns)
+        out, toks = [lg[0, -1].float()], []
+        for i in range(DECODE_CHECK_STEPS):
+            toks.append(int(out[-1].argmax()) if feed is None else feed[i])
+            token = torch.tensor([[toks[-1]]], dtype=torch.int32, device=ids.device)
+            lg, cache = paligemma.decode_step(model, token, cache, fns)
+            out.append(lg[0, -1].float())
+        return out, toks
 
-    lg_k = last_logits(kernels.KERNELS)
-    mid = kernels.launch_counts()
-    lg_p = last_logits(kernels.PLAIN)
+    lg_k, toks = run(kernels.KERNELS)
+    mid = (kernels.launch_counts(), quant.a8_matmul.calls)
+    lg_p, _ = run(kernels.PLAIN, toks)
     torch.cuda.synchronize()
-    check(kernels.launch_counts() == mid, "the plain path launched a kernel")
-    check(bool(torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()), "non-finite logits")
-    err = float((lg_k - lg_p).abs().max())
-    return err, LOGIT_REL_TOL * float(lg_p.abs().max()), int(lg_k.argmax()), int(lg_p.argmax())
+    check((kernels.launch_counts(), quant.a8_matmul.calls) == mid, "the plain path launched a kernel")
+    check(all(bool(torch.isfinite(x).all()) for x in lg_k + lg_p), "non-finite logits")
+    errs = [float((k - p).abs().max()) for k, p in zip(lg_k, lg_p)]
+    bars = [LOGIT_REL_TOL * float(p.abs().max()) for p in lg_p]
+    return errs, bars, int(lg_k[0].argmax()), int(lg_p[0].argmax())
 
 
 def phase_plain_path(torch, model, rec, tok):
@@ -742,19 +921,20 @@ def phase_plain_path(torch, model, rec, tok):
 
     ids, pix = rec["ids"], rec["pix"]
     before = kernels.launch_counts()
-    err, bar, first_k, first_p = _kernel_vs_plain_logits(torch, model, ids, pix)
+    errs, bars, first_k, first_p = _kernel_vs_plain_logits(torch, model, ids, pix)
     mid = kernels.launch_counts()
     toks_p, _ = generation.generate(model, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id, fns=kernels.PLAIN)
     after = kernels.launch_counts()
     agree = sum(a == b for a, b in zip(rec["tokens"], toks_p))
-    log(f"[plain] prefill last-position logits max|kernel - plain| {err:.4e} (bar {bar:.4e}) "
-        f"| first token kernel {first_k} plain {first_p}")
+    log(f"[plain] last-position logits max|kernel - plain| prefill {errs[0]:.4e} (bar {bars[0]:.4e}), "
+        f"decode steps {max(errs[1:]):.4e} (bar {min(bars[1:]):.4e}) | first token kernel {first_k} "
+        f"plain {first_p}")
     log(f"[plain] launches: kernel prefill {mid['flash_attention'] - before['flash_attention']} flash; "
         f"plain generate {after['flash_attention'] - mid['flash_attention']} flash, "
         f"{after['decode_attention'] - mid['decode_attention']} decode")
     log(f"[plain] greedy token agreement over {len(toks_p)} tokens: {agree}/{min(len(toks_p), len(rec['tokens']))}"
         " (reported, not gated: near-ties can flip a bf16 argmax)")
-    check(err <= bar, "kernel-path and plain-path logits disagree")
+    check(all(e <= b for e, b in zip(errs, bars)), "kernel-path and plain-path logits disagree")
     check(first_k == first_p == rec["tokens"][0], "first greedy token differs")
     check(mid["flash_attention"] - before["flash_attention"] == 45, "kernel prefill did not launch")
     check(after == mid, "the plain path launched a kernel")
@@ -764,7 +944,8 @@ KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
     ("decode_attention", "paligemma_tpu_torch/csrc/decode_attention.cu", "paligemma_tpu/ops/pallas_attention.py:242"),
-    ("q8_matmul", "paligemma_tpu_torch/csrc/q8_matmul.cu", "paligemma_tpu/ops/pallas_quant.py:185"),
+    ("q8_matmul", "paligemma_tpu_torch/csrc/quant_matmul.cu", "paligemma_tpu/ops/pallas_quant.py:185"),
+    ("q4_matmul", "paligemma_tpu_torch/csrc/quant_matmul.cu", "paligemma_tpu/ops/pallas_quant.py:120"),
     ("w4a8_gemv", "paligemma_tpu_torch/csrc/w4a8.cu", "paligemma_tpu/ops/pallas_quant.py:497"),
     # quant_rows with its GeGLU prologue is the middle of mlp_w4a8 (four
     # launches: quant_rows, w4a8_gemv, quant_rows, w4a8_gemv).

@@ -1,5 +1,6 @@
 // Single-query GQA attention against the preallocated KV cache, bf16 in and
-// out, fp32 accumulation.
+// out, fp32 accumulation; the cache is bf16, or int8 with one fp32 scale per
+// cached row (the int8 KV cache, models/gemma.py::QuantKVCache).
 //
 // Replaces: paligemma_tpu/ops/pallas_attention.py::decode_attention (kernel
 // body _decode_kernel). Same arithmetic and the same order: scores =
@@ -10,9 +11,17 @@
 // Shape on the main path (PaliGemma-3B-224, batch 1): q (1,1,8,256), cache
 // (1,S,1,256) with S = prompt + max_new_tokens, 18 calls per decoded token.
 //
+// The int8 cache is read as the reference reads it (gemma.py, the decode
+// branch of _attention): each value is widened and multiplied by its row's
+// scale rounded to bf16, and the product is rounded to bf16,
+// bf16(float(q) * bf16(s)) -- exactly the reference's dequantized element
+// (the product of a 7-bit integer and an 8-bit mantissa is exact in fp32).
+// From there the arithmetic is the bf16 cache's, so the result is bit for
+// bit that of dequantizing the cache and running the bf16 kernel.
+//
 // What bounds it on the H100: bytes. Each call reads the visible K and V
-// rows once (2 x 512 B per position) and does 2 x 8 x 256 FMAs per
-// position, far below the compute roof. With batch 1 and one KV head the
+// rows once (2 x 512 B per position in bf16, 2 x (256 + 4) B in int8) and
+// does 2 x 8 x 256 FMAs per position, far below the compute roof. With batch 1 and one KV head the
 // TPU kernel's (B, Hkv) grid would be a single block on one of 132 SMs, so
 // the design splits S instead:
 //   1. decode_scores: one block per (32-position chunk, batch row, kv head).
@@ -49,8 +58,8 @@ static_assert(kChunk == 32, "the chunk statistics give one lane per position");
 
 struct DecodeParams {
   const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* k;        // bf16, or int8 with k_scale / v_scale
+  const void* v;
   bf16* o;
   const int* valid;  // (B,) or null (all S visible)
   float* scores;     // (B, H, S) scratch
@@ -60,11 +69,51 @@ struct DecodeParams {
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
+  const float* k_scale;  // (B, S, Hkv) per-row scales of the int8 cache, or null
+  const float* v_scale;
+  long long ks_sb, ks_ss, ks_sh;
+  long long vs_sb, vs_ss, vs_sh;
   int win0, win1;
   float scale;
 };
 
+// One lane's eight values of a cache row, as loaded (16 bytes of bf16, or 8
+// bytes of int8 and the row's scale), widened to fp32 when used.
+template <bool KV8>
+struct CacheVec;
+
+template <>
+struct CacheVec<false> {
+  typedef bf16 T;
+  uint4 raw;
+  __device__ __forceinline__ void load(const T* row, const float*) {
+    raw = *reinterpret_cast<const uint4*>(row);
+  }
+  __device__ __forceinline__ void widen(float* out) const { bf16x8_to_float(raw, out); }
+};
+
+template <>
+struct CacheVec<true> {
+  typedef int8_t T;
+  uint2 raw;
+  float scale;
+  __device__ __forceinline__ void load(const T* row, const float* row_scale) {
+    raw = *reinterpret_cast<const uint2*>(row);
+    scale = *row_scale;
+  }
+  // The reference's dequantized element: bf16(float(q) * bf16(scale)).
+  __device__ __forceinline__ void widen(float* out) const {
+    const float s = round_bf16(scale);
+    s8x4_to_float(raw.x, out);
+    s8x4_to_float(raw.y, out + 4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = round_bf16(out[e] * s);
+  }
+};
+
+template <bool KV8>
 __global__ void __launch_bounds__(kThreads) decode_scores_kernel(DecodeParams p) {
+  typedef typename CacheVec<KV8>::T KvT;
   extern __shared__ __align__(16) float q_s[];  // G x D, fp32
   const int g = p.h / p.hkv;
   float* s_s = q_s + g * p.d;                   // G x kChunk scores
@@ -81,7 +130,8 @@ __global__ void __launch_bounds__(kThreads) decode_scores_kernel(DecodeParams p)
   const int c0 = blockIdx.x * kChunk, c1 = min(c0 + kChunk, p.s);
   const bool any_visible = kv_range_visible(c0, c1, valid, p.win0, p.win1);
   float* srow = p.scores + ((long long)bi * p.h + hk * g) * p.s;
-  const bf16* kb = p.k + bi * p.k_sb + hk * p.k_sh;
+  const KvT* kb = static_cast<const KvT*>(p.k) + bi * p.k_sb + hk * p.k_sh;
+  const float* ksb = KV8 ? p.k_scale + bi * p.ks_sb + hk * p.ks_sh : nullptr;
   const bool lane_active = lane * 8 < d;
 
   // This warp's cache rows c0 + warp + kWarps * i: all their K loads are
@@ -93,7 +143,9 @@ __global__ void __launch_bounds__(kThreads) decode_scores_kernel(DecodeParams p)
     const int c = c0 + warp + kWarps * i;
     vis[i] = any_visible && c < c1 && kv_visible(c, p.s, valid, p.win0, p.win1);
     if (vis[i] && lane_active) {
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(kb + c * p.k_ss + lane * 8), kf[i]);
+      CacheVec<KV8> kv;
+      kv.load(kb + c * p.k_ss + lane * 8, KV8 ? ksb + c * p.ks_ss : nullptr);
+      kv.widen(kf[i]);
     }
   }
   __syncthreads();  // q_s is complete
@@ -138,7 +190,9 @@ __global__ void __launch_bounds__(kThreads) decode_scores_kernel(DecodeParams p)
   }
 }
 
+template <bool KV8>
 __global__ void __launch_bounds__(kThreads) decode_pv_kernel(DecodeParams p) {
+  typedef typename CacheVec<KV8>::T KvT;
   extern __shared__ __align__(16) float sm[];
   const int g = p.h / p.hkv;
   float* p_s = sm;                 // G x kChunk normalized probabilities
@@ -184,7 +238,8 @@ __global__ void __launch_bounds__(kThreads) decode_pv_kernel(DecodeParams p) {
   // columns lane*8 .. lane*8+7 and reads them with one 16-byte load per
   // row, kUnroll rows in flight at a time. The sum over rows runs in order.
   float* out = p.partial + (((long long)blockIdx.x * p.b + bi) * p.h + hk * g) * d;
-  const bf16* vb = p.v + bi * p.v_sb + hk * p.v_sh;
+  const KvT* vb = static_cast<const KvT*>(p.v) + bi * p.v_sb + hk * p.v_sh;
+  const float* vsb = KV8 ? p.v_scale + bi * p.vs_sb + hk * p.vs_sh : nullptr;
   const bool lane_active = lane * 8 < d;
   for (int gi = warp; gi < g; gi += kWarps) {
     float acc[8];
@@ -193,16 +248,16 @@ __global__ void __launch_bounds__(kThreads) decode_pv_kernel(DecodeParams p) {
     if (any && lane_active) {
       const float* prow = p_s + gi * kChunk;
       for (int cb = c0; cb < c1; cb += kUnroll) {
-        uint4 raw[kUnroll];
+        CacheVec<KV8> raw[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          if (cb + u < c1) raw[u] = *reinterpret_cast<const uint4*>(vb + (cb + u) * p.v_ss + lane * 8);
+          if (cb + u < c1) raw[u].load(vb + (cb + u) * p.v_ss + lane * 8, KV8 ? vsb + (cb + u) * p.vs_ss : nullptr);
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (cb + u < c1) {
             float vf[8];
-            bf16x8_to_float(raw[u], vf);
+            raw[u].widen(vf);
             const float pc = prow[cb + u - c0];
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[e] = fmaf(pc, vf[e], acc[e]);
@@ -230,36 +285,45 @@ __global__ void decode_reduce_kernel(DecodeParams p) {
   p.o[bh * p.d + e] = __float2bfloat16_rn(sum);
 }
 
+template <bool KV8>
+cudaError_t launch(const DecodeParams& p, cudaStream_t st) {
+  const int g = p.h / p.hkv;
+  const dim3 grid(p.n_chunks, p.b * p.hkv);
+  decode_scores_kernel<KV8><<<grid, kThreads, sizeof(float) * g * (p.d + kChunk), st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_pv_kernel<KV8><<<grid, kThreads, sizeof(float) * (g * kChunk + 2 * g), st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_reduce_kernel<<<p.b * p.h, kThreads, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q (B,1,H,D); k/v cache (B,S,Hkv,D): bf16 with unit stride on D and the
-// other strides (in elements) given. o (B,1,H,D) contiguous bf16; scores
-// (B,H,S), stats (ceil(S/chunk),B,H,2) and partial (ceil(S/chunk),B,H,D)
-// fp32 scratch; ``chunk`` must be the kernels' kChunk (the caller sizes
-// ``stats`` and ``partial`` with it). Returns the first cudaError_t of the
-// three launches (0 on success).
+// q (B,1,H,D); k/v cache (B,S,Hkv,D) with unit stride on D and the other
+// strides (in elements) given: bf16, or int8 when k_scale and v_scale (the
+// (B,S,Hkv) fp32 row scales, strides given) are not null. o (B,1,H,D)
+// contiguous bf16; scores (B,H,S), stats (ceil(S/chunk),B,H,2) and partial
+// (ceil(S/chunk),B,H,D) fp32 scratch; ``chunk`` must be the kernels' kChunk
+// (the caller sizes ``stats`` and ``partial`` with it). Returns the first
+// cudaError_t of the three launches (0 on success).
 extern "C" int pg_decode_attention(const void* q, const void* k, const void* v, void* o,
                                    const int* valid, float* scores, float* stats,
                                    float* partial, int b, int s,
                                    int h, int hkv, int d, int chunk, long long q_sb,
                                    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-                                   long long v_sb, long long v_ss, long long v_sh, int win0,
+                                   long long v_sb, long long v_ss, long long v_sh,
+                                   const void* k_scale, const void* v_scale, long long ks_sb,
+                                   long long ks_ss, long long ks_sh, long long vs_sb,
+                                   long long vs_ss, long long vs_sh, int win0,
                                    int win1, float scale, void* stream) {
-  if (chunk != kChunk) return cudaErrorInvalidValue;
+  if (chunk != kChunk || (k_scale == nullptr) != (v_scale == nullptr)) return cudaErrorInvalidValue;
   const int n_chunks = (s + kChunk - 1) / kChunk;
-  DecodeParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<bf16*>(o), valid, scores,
+  DecodeParams p{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(o), valid, scores,
                  reinterpret_cast<float2*>(stats), partial, b, s, h, hkv, d, n_chunks, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                 win0, win1, scale};
-  const int g = h / hkv;
+                 static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                 ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh, win0, win1, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_chunks, b * hkv);
-  decode_scores_kernel<<<grid, kThreads, sizeof(float) * g * (d + kChunk), st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_pv_kernel<<<grid, kThreads, sizeof(float) * (g * kChunk + 2 * g), st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_reduce_kernel<<<b * h, kThreads, 0, st>>>(p);
-  return cudaGetLastError();
+  return k_scale ? launch<true>(p, st) : launch<false>(p, st);
 }

@@ -24,13 +24,16 @@ def make_cache(
     batch: int,
     prompt_len: int,
     max_new_tokens: int,
+    cache_dtype: Optional[torch.dtype] = None,
 ) -> KVCache:
     """A cache for ``prompt_len + max_new_tokens`` positions on the model's
-    device, in the decoder's activation dtype (the attention kernels take
-    one dtype; an int8 embedding makes it bf16)."""
+    device. ``cache_dtype`` None: the decoder's activation dtype (the
+    attention kernels take the activations' dtype; an int8 embedding makes
+    it bf16); ``torch.int8``: a ``QuantKVCache``."""
+    dtype = gemma.activation_dtype(model.llm) if cache_dtype is None else cache_dtype
     return gemma.init_cache(
-        model.cfg.text_config, batch, prompt_len + max_new_tokens,
-        gemma.activation_dtype(model.llm), model.llm.final_norm.weight.device,
+        model.cfg.text_config, batch, prompt_len + max_new_tokens, dtype,
+        model.llm.final_norm.weight.device,
     )
 
 
@@ -76,17 +79,19 @@ def generate(
     eos_token_id: int,
     step_callback: Optional[Callable[[int], None]] = None,
     fns: KernelFns = KERNELS,
+    cache_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[List[int], KVCache]:
     """Batch-1 greedy generation with a host EOS exit (``eos_token_id=-1``
     never matches a token, so it always runs ``max_new_tokens`` steps).
 
     ``step_callback(step)`` runs after each token has reached the host
-    (step 0 is the prefill's token). Returns (token ids, final cache).
+    (step 0 is the prefill's token). ``cache_dtype``: as ``make_cache``'s
+    (``torch.int8`` for the int8 cache). Returns (token ids, final cache).
     """
     b, t = input_ids.shape
     if b != 1:
         raise ValueError(f"generate() is batch-1 (got batch {b})")
-    cache = make_cache(model, b, t, max_new_tokens)
+    cache = make_cache(model, b, t, max_new_tokens, cache_dtype)
     logits, cache = prefill(model, input_ids, pixel_values, cache, fns)
     token = greedy(logits[:, -1, :])
     out = [int(token[0])]

@@ -13,10 +13,15 @@ final RMSNorm, fp32 logits through the tied embedding.
   ``decode_attention``; unwritten slots are masked by the per-row valid
   length, a preallocated (B,) int32 device tensor filled from the host
   length, so no step reads anything back from the device.
+- The int8 cache (``QuantKVCache``, ``init_cache(dtype=torch.int8)``) keeps
+  each written K and V row as int8 with one fp32 scale
+  (``quantize_kv_rows``). Prefill still attends over its fresh, unquantized
+  K/V; decode reads the int8 rows, dequantized as the reference does.
 - q/k/v and gate/up are fused projections, stored in ``nn.Linear``'s
   (out, in) layout. ``quantization.quantize_params`` swaps them for
-  ``QLinear`` (int8) or ``W4A8Linear`` (int4) modules; ``proj`` dispatches
-  the float and int8 types, and the MLP routes w4a8 calls of up to
+  ``QLinear`` (int8), ``Q4Linear`` (int4 weight-only) or ``W4A8Linear``
+  (int4 with int8 activations) modules; ``proj`` dispatches the float,
+  int8 and int4 types, and the MLP routes w4a8 calls of up to
   ``MLP_FUSED_MAX_ROWS`` rows to the fused MLP and larger ones to the int8
   companions, as the reference does. An int8 embedding makes the trunk bf16
   (its lookup is bf16) and gives fp32 logits through ``q8``.
@@ -32,10 +37,10 @@ from torch import nn
 
 from paligemma_tpu_torch.config import GemmaConfig
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
-from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, geglu
+from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, geglu, quantize_rows_s8_rcp
 from paligemma_tpu_torch.ops.norms import rms_norm
 from paligemma_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from paligemma_tpu_torch.quantization import QLinear, W4A8Linear, qproj
+from paligemma_tpu_torch.quantization import Q4Linear, QLinear, W4A8Linear, qproj
 
 
 @dataclasses.dataclass
@@ -57,16 +62,32 @@ class KVCache:
         return self.k.shape[2]
 
 
+@dataclasses.dataclass
+class QuantKVCache(KVCache):
+    """The int8 cache (port of ``QuantKVCache``): k, v int8 (L, B, S, Hkv,
+    hd) and one fp32 scale per written row, k_scale, v_scale (L, B, S, Hkv)."""
+
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+
+# (..., hd) -> ((..., hd) int8, (...) fp32 per-row scale): the reference's
+# jitted quantize_kv_rows is quantize_rows_s8_rcp's arithmetic, to the bit.
+quantize_kv_rows = quantize_rows_s8_rcp
+
+
 def init_cache(
     cfg: GemmaConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"
 ) -> KVCache:
+    """Preallocated cache; ``dtype=torch.int8`` returns a ``QuantKVCache``."""
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
-    return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        length=0,
-        valid=torch.zeros(batch, dtype=torch.int32, device=device),
-    )
+    k = torch.zeros(shape, dtype=dtype, device=device)
+    v = torch.zeros(shape, dtype=dtype, device=device)
+    valid = torch.zeros(batch, dtype=torch.int32, device=device)
+    if dtype == torch.int8:
+        k_scale = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        return QuantKVCache(k, v, 0, valid, k_scale, torch.zeros_like(k_scale))
+    return KVCache(k, v, 0, valid)
 
 
 class RMSNorm(nn.Module):
@@ -80,10 +101,13 @@ class RMSNorm(nn.Module):
 
 
 def proj(x: torch.Tensor, w: nn.Module, fns: KernelFns) -> torch.Tensor:
-    """``x @ W^T`` in x.dtype for a bias-free float or int8 projection (the
-    reference's ``_proj``; w4a8 weights are routed by ``mlp`` and ``logits``)."""
+    """``x @ W^T`` in x.dtype for a bias-free float, int8 or int4 projection
+    (the reference's ``_proj``; w4a8 weights are routed by ``mlp`` and
+    ``logits``)."""
     if isinstance(w, QLinear):
         return qproj(x, w, fns)
+    if isinstance(w, Q4Linear):
+        return fns.q4(x, w.packed, w.scale)
     return F.linear(x, w.weight)
 
 
@@ -111,13 +135,19 @@ class GemmaLayer(nn.Module):
         scale = hd**-0.5
         if cache is not None:
             pos = cache.length
-            cache.k[li, :, pos : pos + t] = k  # in place
-            cache.v[li, :, pos : pos + t] = v
+            k_st, v_st, row_scales = k, v, {}
+            if isinstance(cache, QuantKVCache):
+                (k_st, ks), (v_st, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+                cache.k_scale[li, :, pos : pos + t] = ks
+                cache.v_scale[li, :, pos : pos + t] = vs
+                row_scales = {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]}
+            cache.k[li, :, pos : pos + t] = k_st  # in place
+            cache.v[li, :, pos : pos + t] = v_st
             if t == 1:
-                out = fns.decode(q, cache.k[li], cache.v[li], cache.valid, scale=scale)
+                out = fns.decode(q, cache.k[li], cache.v[li], cache.valid, scale=scale, **row_scales)
                 return proj(out.reshape(b, t, h * hd), self.o, fns)
-        # Prefill: bidirectional over the fresh K/V only (exact: nothing else
-        # is visible yet).
+        # Prefill: bidirectional over the fresh, unquantized K/V only (exact:
+        # nothing else is visible yet).
         out = fns.flash(q, k, v, scale=scale)
         return proj(out.reshape(b, t, h * hd), self.o, fns)
 

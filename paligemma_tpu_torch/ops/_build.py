@@ -33,8 +33,10 @@ _ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctyp
 # so that ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     "pg_flash_attention": [_ptr] * 5 + [_int] * 6 + [_ll] * 9 + [_int, _int, _float, _ptr],
-    "pg_decode_attention": [_ptr] * 8 + [_int] * 6 + [_ll] * 8 + [_int, _int, _float, _ptr],
+    "pg_decode_attention": [_ptr] * 8 + [_int] * 6 + [_ll] * 8 + [_ptr] * 2 + [_ll] * 6
+    + [_int, _int, _float, _ptr],
     "pg_q8_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int, _ptr],
+    "pg_q4_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int, _ptr],
     "pg_quant_rows": [_ptr] * 3 + [_int] * 2 + [_ll, _int, _ptr],
     "pg_w4a8_gemv": [_ptr] * 5 + [_int] * 4 + [_ptr],
 }

@@ -17,7 +17,9 @@ times ``scale``, invisible positions set to ``NEG_INF``, and
 - flash: unnormalized ``P`` (masked entries zeroed) rounded to the value
   dtype, fp32 ``P @ V``, then divided by the fp32 row sum;
 - decode: ``P`` normalized first, then rounded to the value dtype, then
-  fp32 ``P @ V``.
+  fp32 ``P @ V``. An int8 cache (with its per-row ``k_scale`` /
+  ``v_scale``) is first dequantized as the reference reads it: values and
+  scales each cast to the query dtype, their product rounded to it.
 
 Visibility follows ``ops.attention.LengthMask``: batch row ``b`` sees kv
 positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``.
@@ -158,6 +160,12 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def dequantize_cache(c: torch.Tensor, c_scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, S, Hkv, D) int8 rows with (B, S, Hkv) fp32 scales -> ``dtype``, as
+    the reference reads its int8 cache: ``c.astype(dtype) * scale.astype(dtype)``."""
+    return c.to(dtype) * c_scale.to(dtype)[..., None]
+
+
 def decode_attention_plain(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -166,8 +174,13 @@ def decode_attention_plain(
     scale: Optional[float] = None,
     gen_start: Window = None,
     gen_end: Window = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of ``decode_attention`` (any device)."""
+    if k_scale is not None:
+        k_cache = dequantize_cache(k_cache, k_scale, q.dtype)
+        v_cache = dequantize_cache(v_cache, v_scale, q.dtype)
     s = _masked_scores(q, k_cache, valid_len, scale, gen_start, gen_end)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
@@ -182,18 +195,32 @@ def decode_attention(
     scale: Optional[float] = None,
     gen_start: Window = None,
     gen_end: Window = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token GQA attention against the preallocated cache.
 
     q: (B, 1, H, D) this step's queries (RoPE applied); k_cache, v_cache:
     (B, S, Hkv, D), typically one layer's view of the (L, B, S, Hkv, D)
-    cache, read through their strides. Returns (B, 1, H, D) in q.dtype.
+    cache, read through their strides: in q.dtype, or int8 with the
+    (B, S, Hkv) fp32 row scales ``k_scale`` and ``v_scale`` (views of the
+    int8 cache's scales). Returns (B, 1, H, D) in q.dtype.
     """
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, valid_len, scale, gen_start, gen_end)
+        return decode_attention_plain(
+            q, k_cache, v_cache, valid_len, scale, gen_start, gen_end, k_scale, v_scale
+        )
     b, t, h, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
-    _check_cuda("decode_attention", q, k_cache, v_cache, h, hkv, d)
+    kv8 = k_scale is not None or v_scale is not None
+    _check_cuda("decode_attention", q, k_cache, v_cache, h, hkv, d, torch.int8 if kv8 else torch.bfloat16)
+    for sc in (k_scale, v_scale) if kv8 else ():
+        if (sc is None or sc.device != q.device or sc.dtype != torch.float32
+                or tuple(sc.shape) != (b, s_len, hkv)):
+            raise ValueError(
+                f"decode_attention: an int8 cache needs k_scale and v_scale, fp32 "
+                f"({b}, {s_len}, {hkv}) on {q.device}"
+            )
     if t != 1 or v_cache.shape != k_cache.shape or k_cache.shape[0] != b or s_len < 1:
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
@@ -217,6 +244,8 @@ def decode_attention(
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        *((k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(), *v_scale.stride())
+          if kv8 else (None, None, 0, 0, 0, 0, 0, 0)),
         win[0], win[1], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "decode_attention", rc)
@@ -227,18 +256,18 @@ def decode_attention(
 decode_attention.launches = 0
 
 
-def _check_cuda(name: str, q, k, v, h: int, hkv: int, d: int) -> None:
-    """Raise on any input the CUDA kernels do not take."""
-    for x in (q, k, v):
+def _check_cuda(name: str, q, k, v, h: int, hkv: int, d: int, kv_dtype=torch.bfloat16) -> None:
+    """Raise on any input the CUDA kernels do not take (K/V in ``kv_dtype``)."""
+    for x, dtype in ((q, torch.bfloat16), (k, kv_dtype), (v, kv_dtype)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"{name}: tensors must share one CUDA device")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bf16, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes bf16 queries and {kv_dtype} K/V, got {x.dtype}")
         if x.dim() != 4 or x.stride(-1) != 1:
             raise ValueError(f"{name}: 4-d tensors with a unit stride on head_dim required")
-        # 16-byte vector loads of 8 bf16 values along head_dim.
-        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
-            raise ValueError(f"{name}: rows must be 16-byte aligned (strides a multiple of 8)")
+        # Vector loads of 8 values along head_dim (16 bytes of bf16, 8 of int8).
+        if x.data_ptr() % (8 * x.element_size()) or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(f"{name}: rows must be aligned to 8 values (strides a multiple of 8)")
     if k.shape[3] != d or d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: head_dim {d} must be a multiple of 8 in [8, {MAX_HEAD_DIM}]")
     if hkv < 1 or h % hkv:

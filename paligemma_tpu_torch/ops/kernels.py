@@ -19,22 +19,27 @@ from paligemma_tpu_torch.ops import quant
 
 class KernelFns(NamedTuple):
     """``flash``: SigLIP and prefill attention; ``decode``: one token against
-    the cache; ``q8``: every int8 projection and the int8 lm_head; ``q4a8``:
-    the 4-bit lm_head; ``mlp_w4a8``: the w4a8 MLP."""
+    the cache (bf16 or int8); ``q8``: every int8 projection and the int8
+    lm_head; ``q4``: the int4 weight-only projections; ``a8``: int8 x int8
+    projections of long calls (``prefill_a8``); ``q4a8``: the 4-bit lm_head;
+    ``mlp_w4a8``: the w4a8 MLP."""
 
     flash: Callable[..., torch.Tensor]
     decode: Callable[..., torch.Tensor]
     q8: Callable[..., torch.Tensor]
+    q4: Callable[..., torch.Tensor]
+    a8: Callable[..., torch.Tensor]
     q4a8: Callable[..., torch.Tensor]
     mlp_w4a8: Callable[..., torch.Tensor]
 
 
 KERNELS = KernelFns(
-    ca.flash_attention, ca.decode_attention, quant.q8_matmul, quant.q4a8_matmul, quant.mlp_w4a8
+    ca.flash_attention, ca.decode_attention, quant.q8_matmul, quant.q4_matmul, quant.a8_matmul,
+    quant.q4a8_matmul, quant.mlp_w4a8,
 )
 PLAIN = KernelFns(
     ca.flash_attention_plain, ca.decode_attention_plain, quant.q8_matmul_plain,
-    quant.q4a8_matmul_plain, quant.mlp_w4a8_plain,
+    quant.q4_matmul_plain, quant.a8_matmul_plain, quant.q4a8_matmul_plain, quant.mlp_w4a8_plain,
 )
 
 
@@ -44,5 +49,6 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch count (and ``quant.a8_matmul``'s call count)."""
     ca.reset_launch_counts()
     quant.reset_launch_counts()

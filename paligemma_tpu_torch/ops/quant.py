@@ -1,30 +1,38 @@
-"""int8 and w4a8 matmuls: hand-written CUDA kernels and their plain versions.
+"""int8, int4 and w4a8 matmuls: hand-written CUDA kernels and their plain versions.
 
-Port of the serving-path parts of ``paligemma_tpu/ops/pallas_quant.py``
-(``q8_matmul``, ``quantize_rows_s8``, ``q4a8_matmul[_tiled]``,
-``mlp_w4a8[_stacked]``). Each public function dispatches on the device of
-its activation tensor:
+Port of ``paligemma_tpu/ops/pallas_quant.py`` (``q8_matmul``,
+``q4_matmul``, ``quantize_rows_s8``, ``q4a8_matmul[_tiled]``,
+``mlp_w4a8[_stacked]``) and of the reference's ``qproj_a8`` product. Each
+public function dispatches on the device of its activation tensor:
 
 - a CPU tensor takes the plain PyTorch version beside it (``*_plain``),
-- a CUDA tensor launches the kernels of ``csrc/q8_matmul.cu`` and
-  ``csrc/w4a8.cu`` or raises; there is no fallback.
+- a CUDA tensor launches the kernels of ``csrc/quant_matmul.cu`` and
+  ``csrc/w4a8.cu`` (``a8_matmul``: ``torch._int_mm``) or raises; there is no
+  fallback.
 
 The weight layout is the port's own, ``nn.Linear``'s ``(out, in)``:
 
 - int8: ``q`` (O, D) int8 with one fp32 scale per output row, ``s`` (O,);
   the tied lm_head (V, D) with its per-row scales is the same shape.
-- int4 (w4a8): ``packed`` (O, D/2) uint8, two signed nibbles of one output
-  row per byte. Within each group of 8 input columns ``8i..8i+7``, byte
-  ``4i + k`` holds column ``8i + k`` in its low nibble and ``8i + 4 + k`` in
-  its high nibble, so one 32-bit word of packed bytes pairs with two 32-bit
-  words of int8 activations in ``__dp4a``.
+- int4 (int4 weight-only and w4a8): ``packed`` (O, D/2) uint8, two signed
+  nibbles of one output row per byte. Within each group of 8 input columns
+  ``8i..8i+7``, byte ``4i + k`` holds column ``8i + k`` in its low nibble
+  and ``8i + 4 + k`` in its high nibble, so one 32-bit word of packed bytes
+  pairs with two 32-bit words of int8 activations in ``__dp4a``, and
+  ``(w << 4) & 0xF0F0F0F0`` / ``w & 0xF0F0F0F0`` are 16 times four columns
+  each, exact in int8 lanes.
 
 Numerics, as in the reference:
 
-- ``q8_matmul``: ``(x @ q^T)`` accumulated in fp32, times the scale in fp32,
-  rounded once to the output dtype.
+- ``q8_matmul`` and ``q4_matmul``: ``(x @ q^T)`` accumulated in fp32 (the
+  weights are exact in bf16), times the scale in fp32, rounded once to the
+  output dtype.
 - ``quant_rows``: per row ``xs = max(absmax, 1e-8) / 127``,
   ``xq = round_half_even(x / xs)``.
+- ``a8_matmul`` (the reference's ``qproj_a8``): per row
+  ``xs = max(absmax, 1e-8) * fp32(1/127)`` (``quantize_rows_s8_rcp``),
+  ``xq = round(x / xs)``, an exact int32 product with the int8 weight, then
+  ``(float(acc) * xs) * s`` rounded to x.dtype.
 - ``w4a8_gemv``: exact int32 accumulation of int8 x int4, then
   ``(float(acc) * xs) * s``. Every partial sum is an integer below 2^24 in
   magnitude (|acc| <= 127 * 7 * 16384 at the widest row), so the plain
@@ -34,7 +42,8 @@ Numerics, as in the reference:
 
 Each kernel wrapper counts its launches in its ``launches`` attribute;
 ``q4a8_matmul`` and ``mlp_w4a8`` launch through ``quant_rows`` and
-``w4a8_gemv`` and are counted there.
+``w4a8_gemv`` and are counted there. ``a8_matmul`` launches no kernel of
+the port and counts its calls in ``calls``.
 """
 from __future__ import annotations
 
@@ -99,6 +108,18 @@ def quantize_rows_s8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, xs
 
 
+def quantize_rows_s8_rcp(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) -> (xq int8 (..., D), xs fp32 (...)) as the reference's jitted
+    ``qproj_a8`` and ``quantize_kv_rows`` compute it: XLA turns their
+    ``/ 127.0`` into a product with the fp32 reciprocal, so
+    ``xs = max(absmax, 1e-8) * fp32(1/127)``; ``xq = round(x / xs)`` stays an
+    IEEE division of two tensors (clipped to [-127, 127], which never binds)."""
+    xf = x.float()
+    xs = xf.abs().amax(dim=-1).clamp_min(1e-8) * (1.0 / 127.0)
+    xq = torch.round(xf / xs[..., None]).clamp_(-127, 127).to(torch.int8)
+    return xq, xs
+
+
 def quant_rows_plain(x: torch.Tensor, geglu_prologue: bool = False):
     """Plain version of ``quant_rows`` (any device)."""
     return quantize_rows_s8(geglu(x) if geglu_prologue else x)
@@ -128,8 +149,28 @@ quant_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# int8 weight-only matmul
+# Weight-only matmuls: int8 and packed int4
 # ---------------------------------------------------------------------------
+
+
+def _weight_only(name, entry, x, w, scale, out_dtype, w_dtype, cols_per_byte):
+    """Launch ``entry`` of ``csrc/quant_matmul.cu``: x (..., D) @ the (O, D)
+    weight stored as (O, D / cols_per_byte) ``w_dtype`` -> (..., O)."""
+    out_dtype = out_dtype or x.dtype
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d)
+    m, o = x2.shape[0], w.shape[0]
+    # One 16-byte weight vector holds 16 int8 or 32 int4 columns.
+    _check_rows(name, x2, d_multiple=16 * cols_per_byte)
+    _check_weight(name, x2, w, scale, w_dtype, (o, d // cols_per_byte))
+    out = torch.empty((m, o), dtype=_out_dtype(name, out_dtype), device=x.device)
+    lib = _build.load_library()
+    rc = getattr(lib, entry)(
+        x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, o, d, x2.stride(0),
+        int(out.dtype == torch.float32), _stream(x),
+    )
+    _build.check(lib, name, rc)
+    return out.reshape(*lead, o)
 
 
 def q8_matmul_plain(
@@ -147,24 +188,80 @@ def q8_matmul(
     in ``out_dtype`` (default x.dtype; the kernel writes bf16 or fp32)."""
     if x.device.type == "cpu":
         return q8_matmul_plain(x, q, scale, out_dtype)
-    out_dtype = out_dtype or x.dtype
-    *lead, d = x.shape
-    x2 = x.reshape(-1, d)
-    m, o = x2.shape[0], q.shape[0]
-    _check_rows("q8_matmul", x2, d_multiple=16)
-    _check_weight("q8_matmul", x2, q, scale, torch.int8, (o, d))
-    out = torch.empty((m, o), dtype=_out_dtype("q8_matmul", out_dtype), device=x.device)
-    lib = _build.load_library()
-    rc = lib.pg_q8_matmul(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, o, d, x2.stride(0),
-        int(out.dtype == torch.float32), _stream(x),
-    )
-    _build.check(lib, "q8_matmul", rc)
+    out = _weight_only("q8_matmul", "pg_q8_matmul", x, q, scale, out_dtype, torch.int8, 1)
     q8_matmul.launches += 1
-    return out.reshape(*lead, o)
+    return out
 
 
 q8_matmul.launches = 0
+
+
+def q4_matmul_plain(
+    x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version of ``q4_matmul`` (any device)."""
+    y = (x.float() @ unpack_int4(packed).float().t()) * scale
+    return y.to(out_dtype or x.dtype)
+
+
+def q4_matmul(
+    x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """x (..., D) @ packed int4 (O, D/2)^T times the per-row scales (O,) ->
+    (..., O) in ``out_dtype`` (default x.dtype; the kernel writes bf16 or
+    fp32). The int4 weight-only matmul: the activations stay in x.dtype."""
+    if x.device.type == "cpu":
+        return q4_matmul_plain(x, packed, scale, out_dtype)
+    out = _weight_only("q4_matmul", "pg_q4_matmul", x, packed, scale, out_dtype, torch.uint8, 2)
+    q4_matmul.launches += 1
+    return out
+
+
+q4_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 x int8 projection (the reference's qproj_a8, an XLA einsum there)
+# ---------------------------------------------------------------------------
+
+
+def a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``a8_matmul`` (any device). The product is taken in
+    float64, exact for these integer sums (fp32 is not: 127^2 x 2048 is
+    above 2^24)."""
+    xq, xs = quantize_rows_s8_rcp(x)
+    acc = (xq.double() @ q.double().t()).to(torch.int32)
+    return (acc.float() * xs[..., None] * scale).to(x.dtype)
+
+
+def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x (..., D) quantized to int8 per row @ int8 (O, D)^T with an exact
+    int32 product, rescaled per row and per output row -> (..., O) in
+    x.dtype. On the card the product is ``torch._int_mm`` (cuBLASLt), which
+    takes more than 16 rows and widths that are multiples of 8; anything
+    else raises."""
+    if x.device.type == "cpu":
+        return a8_matmul_plain(x, q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"a8_matmul: activations must be on a CUDA device, got {x.device}")
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d)
+    m, o = x2.shape[0], q.shape[0]
+    if m <= 16 or d % 8 or o % 8:
+        raise ValueError(
+            f"a8_matmul: torch._int_mm needs more than 16 rows and widths that are "
+            f"multiples of 8, got ({m}, {d}) @ ({d}, {o})"
+        )
+    _check_weight("a8_matmul", x2, q, scale, torch.int8, (o, d))
+    xq, xs = quantize_rows_s8_rcp(x2)
+    acc = torch._int_mm(xq, q.t())  # the (O, D) weight as a column-major (D, O)
+    a8_matmul.calls += 1
+    return (acc.float() * xs[:, None] * scale).to(x.dtype).reshape(*lead, o)
+
+
+a8_matmul.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -318,11 +415,14 @@ def _check_weight(name, x, w, scale, dtype, shape) -> None:
 def launch_counts() -> dict:
     return {
         "q8_matmul": q8_matmul.launches,
+        "q4_matmul": q4_matmul.launches,
         "w4a8_gemv": w4a8_gemv.launches,
         "quant_rows": quant_rows.launches,
     }
 
 
 def reset_launch_counts() -> None:
-    for fn in (q8_matmul, w4a8_gemv, quant_rows):
+    """Zero every launch count, and ``a8_matmul``'s call count."""
+    for fn in (q8_matmul, q4_matmul, w4a8_gemv, quant_rows):
         fn.launches = 0
+    a8_matmul.calls = 0

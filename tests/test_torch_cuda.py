@@ -4,7 +4,8 @@
 
 Each kernel is held to its plain version on the same inputs (two bf16 ulps,
 see chip_smoke.py; the integer stages exactly), and a tiny model's kernel
-path to its plain path, in bf16 and in the int8 and w4a8 modes.
+path to its plain path, in bf16 and in the int8, int4 and w4a8 modes and
+with the int8 KV cache.
 """
 import dataclasses
 
@@ -13,7 +14,7 @@ import torch
 
 import paligemma_tpu_torch
 from paligemma_tpu_torch import generation, quantization
-from paligemma_tpu_torch.models import paligemma
+from paligemma_tpu_torch.models import gemma, paligemma
 from paligemma_tpu_torch.ops import cuda_attention as ca
 from paligemma_tpu_torch.ops import quant
 from paligemma_tpu_torch.ops.kernels import PLAIN
@@ -163,7 +164,7 @@ def test_mlp_w4a8_kernels_match_plain(cuda, m):
     torch.testing.assert_close(out, quant.mlp_w4a8_plain(x, gu, gs, dn, ds), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("mode,lm_head_w4", [("int8", False), ("w4a8", False), ("w4a8", True)])
+@pytest.mark.parametrize("mode,lm_head_w4", [("int8", False), ("w4a8", False), ("w4a8", True), ("int4", False)])
 def test_tiny_quantized_model_kernel_path_matches_plain_path(cuda, mode, lm_head_w4):
     cfg = paligemma_tpu_torch.tiny_config()
     # The kernels take head_dim in multiples of 8: widen tiny SigLIP's 6 to 8.
@@ -185,3 +186,84 @@ def test_tiny_quantized_model_kernel_path_matches_plain_path(cuda, mode, lm_head
         # launches per fused MLP, and one of each per 4-bit lm_head row.
         want_w4 = 2 * cfg.text_config.num_hidden_layers * 6 + (6 if lm_head_w4 else 0)
         assert launched["quant_rows"] == launched["w4a8_gemv"] == want_w4
+    if mode == "int4":
+        # Six forwards, four int4 projections per layer in each.
+        assert launched["q4_matmul"] == 4 * cfg.text_config.num_hidden_layers * 6
+
+
+# ---------------------------------------------------------------------------
+# int4 weight-only matmul, the int8 KV cache, the int8 x int8 projection
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,o,d", [
+    (1, 2560, 2048),    # decode qkv
+    (1, 2048, 2048),    # decode o
+    (1, 32768, 2048),   # decode gate_up
+    (1, 2048, 16384),   # decode down
+    (64, 2560, 2048),   # the largest GEMV call
+    (276, 32768, 2048), # prefill gate_up, GEMM tiling
+    (276, 2048, 16384), # prefill down
+    (3, 1000, 352),     # ragged rows and widths
+    (130, 200, 64),     # ragged GEMM edges
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_q4_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _rand(gen, (m, d), cuda)
+    packed = quant.pack_int4(_int8(gen, (o, d), cuda, -7, 8))
+    s = (torch.rand(o, generator=gen, device=cuda) + 0.5) / (4.3 * d**0.5)
+    before = quant.q4_matmul.launches
+    out = quant.q4_matmul(x, packed, s, out_dtype)
+    torch.cuda.synchronize()
+    assert quant.q4_matmul.launches == before + 1 and out.dtype == out_dtype
+    torch.testing.assert_close(out.float(), quant.q4_matmul_plain(x, packed, s, out_dtype).float(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("s_len,valid", [(308, 292), (1100, 700), (4128, 4100)])
+def test_int8_kv_decode_is_the_dequantized_bf16_decode(cuda, s_len, valid):
+    """The int8 read is bit for bit "dequantize the cache, then the bf16
+    kernel", within the kernel bar of the plain version, and blind to a
+    poisoned tail past the valid length."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = _rand(gen, (1, 1, 8, 256), cuda)
+    kv = [gemma.quantize_kv_rows(_rand(gen, (3, 1, s_len, 1, 256), cuda)) for _ in range(2)]
+    (kq, ks), (vq, vs) = [(c[1], c_scale[1]) for c, c_scale in kv]  # a layer of a stacked cache
+    vl = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    out = ca.decode_attention(q, kq, vq, vl, k_scale=ks, v_scale=vs)
+    deq = [ca.dequantize_cache(c, c_scale, torch.bfloat16) for c, c_scale in ((kq, ks), (vq, vs))]
+    torch.cuda.synchronize()
+    assert torch.equal(out, ca.decode_attention(q, *deq, vl))
+    torch.testing.assert_close(out, ca.decode_attention_plain(q, kq, vq, vl, k_scale=ks, v_scale=vs),
+                               rtol=RTOL, atol=ATOL)
+    for c, c_scale in ((kq, ks), (vq, vs)):
+        c[:, valid:], c_scale[:, valid:] = 127, 1e4
+    poisoned = ca.decode_attention(q, kq, vq, vl, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, out)
+
+
+@pytest.mark.parametrize("m,o,d", [(276, 2560, 2048), (276, 2048, 16384), (256, 4304, 1152)])
+def test_a8_matmul_on_the_card_is_its_exact_plain_version(cuda, m, o, d):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _rand(gen, (1, m, d), cuda)
+    q, s = _int8(gen, (o, d), cuda), torch.rand(o, generator=gen, device=cuda) * 0.01 + 1e-3
+    out = quant.a8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, quant.a8_matmul_plain(x, q, s))
+    with pytest.raises(ValueError, match="more than 16 rows"):
+        quant.a8_matmul(x[:, :16], q, s)
+
+
+def test_tiny_int8_kv_model_kernel_path_matches_plain_path(cuda):
+    cfg = paligemma_tpu_torch.tiny_config()
+    cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, hidden_size=32, intermediate_size=64))
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    n_img = cfg.vision_config.num_image_tokens
+    ids = torch.cat([torch.full((1, n_img), cfg.image_token_index), torch.arange(2, 9)[None]], 1).to(cuda)
+    pix = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)).to(cuda, torch.bfloat16)
+    got, cache = generation.generate(model, ids, pix, 6, -1, cache_dtype=torch.int8)
+    want, _ = generation.generate(model, ids, pix, 6, -1, fns=PLAIN, cache_dtype=torch.int8)
+    assert isinstance(cache, gemma.QuantKVCache) and got[0] == want[0]

@@ -152,7 +152,7 @@ def test_nvcc_command_targets_sm90a_into_the_ignored_build_dir(monkeypatch, tmp_
         assert {"-c", "-O3", "-std=c++17"} <= set(cmd) and "-shared" not in cmd
         assert Path(cmd[cmd.index("-o") + 1]).parent == tmp_path
     srcs = {Path(c).name for cmd in cmds for c in cmd if c.endswith(".cu")}
-    assert srcs == {"flash_attention.cu", "decode_attention.cu", "q8_matmul.cu", "w4a8.cu"}
+    assert srcs == {"flash_attention.cu", "decode_attention.cu", "quant_matmul.cu", "w4a8.cu"}
     assert len(cmds) == len(srcs)
     objs = [cmd[cmd.index("-o") + 1] for cmd in cmds]
     link = _build.link_command(_build.library_path(), objs, "nvcc")

@@ -346,8 +346,8 @@ def test_quantize_params_layout_and_sharing(base):
 
 def test_quantize_params_refuses_what_it_does_not_support(base):
     model = base[2]
-    with pytest.raises(ValueError, match="int4"):
-        tquant.quantize_params(model, mode="int4")
+    with pytest.raises(ValueError, match="fp8"):
+        tquant.quantize_params(model, mode="fp8")
     with pytest.raises(ValueError, match="lm_head_w4"):
         tquant.quantize_params(model, mode="int8", lm_head_w4=True)
 

@@ -6,8 +6,8 @@
 PaliGemma-3B-224 with seeded random weights made on the card and the first
 request of ``chip_smoke.py`` (its ``build_model`` and ``_request``). For each
 serving arm (the bf16 model, and each of chip_smoke's ``QUANT_ARMS``: the
-model quantized on the card by ``quantization.quantize_params``), after a
-warm-up:
+model quantized on the card by ``quantization.quantize_params``, with the
+arm's cache), after a warm-up:
 
 - host-clock ms of one ``generation.prefill`` and ms/token of one
   ``generation.decode_steps`` chunk of ``STEPS`` tokens, unprofiled;
@@ -33,7 +33,8 @@ from pathlib import Path
 STEPS = 15  # decode tokens per profiled chunk
 # Kernel-name substrings of each group, first match wins.
 GROUPS = [
-    ("q8_matmul", ("q8_gemv_kernel", "q8_gemm_kernel")),
+    ("q4_matmul", ("Int4Rows",)),
+    ("q8_matmul", ("Int8Rows",)),
     ("w4a8_gemv", ("w4a8_gemv_kernel",)),
     ("quant_rows", ("quant_rows_kernel",)),
     ("flash_attention", ("flash_attention_kernel",)),
@@ -98,20 +99,21 @@ def main() -> int:
     ids, pix = chip_smoke._request(torch, proc, 0)
     n = STEPS
 
-    def prefill(m):
-        cache = generation.make_cache(m, 1, ids.shape[1], n + 1)
+    def prefill(m, cache_dtype):
+        cache = generation.make_cache(m, 1, ids.shape[1], n + 1, cache_dtype)
         logits, cache = generation.prefill(m, ids, pix, cache)
         return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
 
     result = {"device": smi, "prompt_len": int(ids.shape[1]), "steps": n, "arms": {}}
-    for arm, mode, lm_head_w4 in [("bf16", None, False)] + chip_smoke.QUANT_ARMS:
-        m = model if mode is None else quantization.quantize_params(model, mode=mode, lm_head_w4=lm_head_w4)
-        tok0, cache = prefill(m)  # warm-up
+    for arm, qargs, kv_int8 in [("bf16", None, False)] + chip_smoke.QUANT_ARMS:
+        m = model if qargs is None else quantization.quantize_params(model, **qargs)
+        cache_dtype = torch.int8 if kv_int8 else None
+        tok0, cache = prefill(m, cache_dtype)  # warm-up
         generation.decode_steps(m, tok0, cache, 3)
         torch.cuda.synchronize()
 
         t0 = time.perf_counter()
-        tok0, cache = prefill(m)
+        tok0, cache = prefill(m, cache_dtype)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
@@ -121,7 +123,7 @@ def main() -> int:
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof_p:
-            tok0, cache = prefill(m)
+            tok0, cache = prefill(m, cache_dtype)
             torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof_d:
             generation.decode_steps(m, tok0, cache, n)[0].tolist()
