@@ -17,7 +17,9 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    tail, bit-identical to the bf16 kernel over the dequantized cache. The
    quant kernels (q8_matmul, q4_matmul, w4a8_gemv, quant_rows and the
    mlp_w4a8 they make up) at every decode shape of the 3B model, at 64 and
-   276 rows, at the flat q4a8_matmul shapes, and at ragged rows and widths;
+   276 rows, at the flat q4a8_matmul shapes, at ragged rows and widths,
+   and at the GEMM's edges (65 rows, O not a multiple of 128, strided
+   rows, split K with D not a multiple of the split, fp32 out, 1044 rows);
    the int8 x int8 projection (torch._int_mm) against its exact plain
    version.
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
@@ -268,6 +270,14 @@ def phase_quant_kernels(torch):
         ("siglip fc1 GEMM M=256 O=4304 D=1152", 256, 4304, 1152, False),
         ("ragged GEMV M=3 O=1000 D=336", 3, 1000, 336, False),
         ("ragged GEMM M=130 O=200 D=48", 130, 200, 48, False),
+        # The GEMM's edges: the first row count it takes, O not a multiple
+        # of its 128-column blocks, D not a multiple of splits x 64 (split
+        # K), and fp32 out with split K.
+        ("GEMM M=65 O=2560 D=2048", 65, 2560, 2048, False),
+        ("GEMM M=276 O=200 D=2048", 276, 200, 2048, False),
+        ("split-K GEMM M=276 O=2048 D=16400", 276, 2048, 16400, False),
+        ("split-K GEMM M=276 O=2048 D=16384 fp32", 276, 2048, 16384, True),
+        ("448-px GEMM M=1044 O=2048 D=16384", 1044, 2048, 16384, False),
     ]
     for name, m, o, d, f32 in q8_cases:
         x, q = _rand(torch, gen, (m, d), dev), ints((o, d), -127, 128)
@@ -280,6 +290,10 @@ def phase_quant_kernels(torch):
     q, s = ints((300, 256), -127, 128), scales(300, 256, 73.0)
     held("q8_matmul", "strided rows M=5 O=300 D=256 (stride 512)",
          quant.q8_matmul(wide[:, 128:384], q, s), quant.q8_matmul_plain(wide[:, 128:384], q, s))
+    wide_gemm = _rand(torch, gen, (130, 4096), dev)
+    q, s = ints((520, 2048), -127, 128), scales(520, 2048, 73.0)
+    held("q8_matmul", "strided GEMM rows M=130 O=520 D=2048 (stride 4096)",
+         quant.q8_matmul(wide_gemm[:, 1024:3072], q, s), quant.q8_matmul_plain(wide_gemm[:, 1024:3072], q, s))
 
     q4_cases = [
         # name, m, o, d, fp32 out
@@ -295,6 +309,12 @@ def phase_quant_kernels(torch):
         ("GEMM M=276 O=2048 D=2048 fp32", 276, 2048, 2048, True),
         ("ragged GEMV M=3 O=1000 D=352", 3, 1000, 352, False),
         ("ragged GEMM M=130 O=200 D=64", 130, 200, 64, False),
+        ("GEMM M=65 O=2560 D=2048", 65, 2560, 2048, False),
+        ("GEMM M=276 O=200 D=2048", 276, 200, 2048, False),
+        ("siglip fc1 GEMM M=256 O=4304 D=1152", 256, 4304, 1152, False),
+        ("split-K GEMM M=276 O=2048 D=16416", 276, 2048, 16416, False),
+        ("split-K GEMM M=276 O=2048 D=16384 fp32", 276, 2048, 16384, True),
+        ("448-px GEMM M=1044 O=2048 D=16384", 1044, 2048, 16384, False),
     ]
     for name, m, o, d, f32 in q4_cases:
         x, packed = _rand(torch, gen, (m, d), dev), quant.pack_int4(ints((o, d), -7, 8))
@@ -305,6 +325,10 @@ def phase_quant_kernels(torch):
     packed, s = quant.pack_int4(ints((300, 256), -7, 8)), scales(300, 256, 4.3)
     held("q4_matmul", "strided rows M=5 O=300 D=256 (stride 512)",
          quant.q4_matmul(wide[:, 128:384], packed, s), quant.q4_matmul_plain(wide[:, 128:384], packed, s))
+    packed, s = quant.pack_int4(ints((520, 2048), -7, 8)), scales(520, 2048, 4.3)
+    held("q4_matmul", "strided GEMM rows M=130 O=520 D=2048 (stride 4096)",
+         quant.q4_matmul(wide_gemm[:, 1024:3072], packed, s),
+         quant.q4_matmul_plain(wide_gemm[:, 1024:3072], packed, s))
 
     # The int8 x int8 projection (prefill_a8): torch._int_mm, not a kernel of
     # the port; exact integer sums and the same epilogue as its plain version.
@@ -552,6 +576,10 @@ def phase_timing(torch, prompt_len):
         q8_row(f"prefill gate_up M={prompt_len} O=32768 D=2048", 0, prompt_len, 32768, 2048),
         q8_row(f"prefill down M={prompt_len} O=2048 D=16384", 0, prompt_len, 2048, 16384),
         q8_row("siglip fc1 M=256 O=4304 D=1152", 0, 256, 4304, 1152),
+        q8_row(f"prefill qkv M={prompt_len} O=2560 D=2048 fp32", 0, prompt_len, 2560, 2048, f32=True),
+        # The 448-px preset's decoder rows (1024 image tokens and a prompt).
+        q8_row("448-px prefill gate_up M=1044 O=32768 D=2048", 0, 1044, 32768, 2048),
+        q8_row("448-px prefill down M=1044 O=2048 D=16384", 0, 1044, 2048, 16384),
     ], library="F.linear on the weight dequantized to bf16 ahead of time (bf16 out)")
     del q8_row
 
@@ -598,6 +626,8 @@ def phase_timing(torch, prompt_len):
         q4_row(f"prefill qkv M={prompt_len} O=2560 D=2048", 0, prompt_len, 2560, 2048),
         q4_row(f"prefill gate_up M={prompt_len} O=32768 D=2048", 0, prompt_len, 32768, 2048),
         q4_row(f"prefill down M={prompt_len} O=2048 D=16384", 0, prompt_len, 2048, 16384),
+        q4_row("448-px prefill gate_up M=1044 O=32768 D=2048", 0, 1044, 32768, 2048),
+        q4_row("448-px prefill down M=1044 O=2048 D=16384", 0, 1044, 2048, 16384),
     ], library="torch._weight_int4pack_mm (tinygemm; the same int4 values, the row scales in bf16)")
     del q4_row
 

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "pg_flash_attention": [_ptr] * 5 + [_int] * 6 + [_ll] * 9 + [_int, _int, _float, _ptr],
     "pg_decode_attention": [_ptr] * 8 + [_int] * 6 + [_ll] * 8 + [_ptr] * 2 + [_ll] * 6
     + [_int, _int, _float, _ptr],
-    "pg_q8_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int, _ptr],
-    "pg_q4_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int, _ptr],
+    "pg_q8_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int] + [_ptr] * 3,
+    "pg_q4_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int] + [_ptr] * 3,
     "pg_quant_rows": [_ptr] * 3 + [_int] * 2 + [_ll, _int, _ptr],
     "pg_w4a8_gemv": [_ptr] * 5 + [_int] * 4 + [_ptr],
 }
@@ -126,6 +126,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.pg_quant_matmul_workspace.argtypes = [_int] * 5  # returns bytes, not an error
+    lib.pg_quant_matmul_workspace.restype = ctypes.c_longlong
     lib.pg_error_string.argtypes = [ctypes.c_int]
     lib.pg_error_string.restype = ctypes.c_char_p
     return lib

@@ -47,6 +47,7 @@ the port and counts its calls in ``calls``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -153,6 +154,21 @@ quant_rows.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# More rows than this take the GEMM tiling of csrc/quant_matmul.cu
+# (its kGemvMaxRows), which may split K and then needs a workspace.
+_GEMV_MAX_ROWS = 64
+# The split-K arrival counters (csrc/quant_matmul.cu's kMaxSplitTiles).
+_SPLIT_COUNTERS = 4096
+
+
+@functools.cache
+def _split_counters(device: torch.device) -> torch.Tensor:
+    """The arrival counters of the split-K GEMM on ``device``: zeroed once;
+    every launch leaves them at zero. All calls use one stream, so they
+    never run at the same time."""
+    return torch.zeros(_SPLIT_COUNTERS, dtype=torch.int32, device=device)
+
+
 def _weight_only(name, entry, x, w, scale, out_dtype, w_dtype, cols_per_byte):
     """Launch ``entry`` of ``csrc/quant_matmul.cu``: x (..., D) @ the (O, D)
     weight stored as (O, D / cols_per_byte) ``w_dtype`` -> (..., O)."""
@@ -164,10 +180,18 @@ def _weight_only(name, entry, x, w, scale, out_dtype, w_dtype, cols_per_byte):
     _check_rows(name, x2, d_multiple=16 * cols_per_byte)
     _check_weight(name, x2, w, scale, w_dtype, (o, d // cols_per_byte))
     out = torch.empty((m, o), dtype=_out_dtype(name, out_dtype), device=x.device)
+    f32 = int(out.dtype == torch.float32)
     lib = _build.load_library()
+    ws = counters = None
+    if m > _GEMV_MAX_ROWS:
+        nbytes = lib.pg_quant_matmul_workspace(m, o, d, int(cols_per_byte == 2), f32)
+        if nbytes:
+            ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+            counters = _split_counters(x.device)
     rc = getattr(lib, entry)(
         x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, o, d, x2.stride(0),
-        int(out.dtype == torch.float32), _stream(x),
+        f32, None if ws is None else ws.data_ptr(), None if counters is None else counters.data_ptr(),
+        _stream(x),
     )
     _build.check(lib, name, rc)
     return out.reshape(*lead, o)

@@ -101,6 +101,11 @@ def _int8(gen, shape, dev, lo=-127, hi=128):
     (9, 2048, 16384),   # GEMV in passes over D, rows 8 at a time
     (276, 2560, 2048),  # prefill, GEMM tiling
     (130, 200, 48),     # ragged GEMM edges
+    (65, 2560, 2048),   # the first row count of the GEMM
+    (276, 200, 2048),   # O not a multiple of the 128-column blocks
+    (256, 4304, 1152),  # SigLIP fc1
+    (97, 201, 64),      # odd O
+    (276, 2048, 16400), # split K, D not a multiple of splits x 64
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_q8_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
@@ -206,6 +211,11 @@ def test_tiny_quantized_model_kernel_path_matches_plain_path(cuda, mode, lm_head
     (276, 2048, 16384), # prefill down
     (3, 1000, 352),     # ragged rows and widths
     (130, 200, 64),     # ragged GEMM edges
+    (65, 2560, 2048),   # the first row count of the GEMM
+    (276, 200, 2048),   # O not a multiple of the 128-column blocks
+    (256, 4304, 1152),  # SigLIP fc1
+    (97, 201, 64),      # odd O
+    (276, 2048, 16416), # split K, D not a multiple of splits x 64
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_q4_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
