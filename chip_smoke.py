@@ -12,7 +12,9 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    card, in bf16, at the main-path shapes, at the 896-px preset's lengths
    (SigLIP T=S=4096, prefill T=S=4110, a 4128-position cache), and at edge
    cases (batch 2 with per-row valid lengths and a window, ragged T/S, fully
-   masked tiles, poisoned K/V past the valid length, head_dim 72); decode
+   masked tiles, poisoned K/V past the valid length, head_dim 72, and the
+   flash kernel's tile edges in both of its tilings: T=S at 63, 64, 65 and
+   129, whole kv tiles masked, head_dim 8 and 256, GQA 8:1 with a window); decode
    attention over an int8 cache at S = 308, 1100 and 4128 with a poisoned
    tail, bit-identical to the bf16 kernel over the dequantized cache. The
    quant kernels (q8_matmul, q4_matmul, w4a8_gemv, quant_rows and the
@@ -43,7 +45,8 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    dispatch is not timed), beside its bound (the larger of its bytes over
    the card's memory rate and its operations over the peak rate of their
    type) and the time of one PyTorch call that computes the same function,
-   where there is one (never called by the port).
+   where there is one (never called by the port); flash also at the 448-
+   and 896-px presets' lengths.
 
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -92,6 +95,34 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # copies of them to stream this many bytes, as a decode step streams every
 # layer's weights in turn.
 L2_FLUSH_BYTES = 100e6
+
+# flash_attention against its plain version (phase 3): name, (b, t, h, hkv, d),
+# keyword arguments, and the kv position from which K and V are poisoned.
+FLASH_CASES = [
+    ("siglip-224 T=S=256 H=16 D=72 (fused views)", (1, 256, 16, 16, 72), {}, None),
+    ("gemma prefill T=S=276 H=8 Hkv=1 D=256", (1, 276, 8, 1, 256), {}, None),
+    ("896-px siglip T=S=4096 H=16 D=72", (1, 4096, 16, 16, 72), {}, None),
+    ("896-px gemma prefill T=S=4110 H=8 Hkv=1 D=256", (1, 4110, 8, 1, 256), {}, None),
+    ("B=2 valid=[37,200] window=[150,170) D=64", (2, 200, 4, 2, 64),
+     {"valid_len": [37, 200], "gen_start": 150, "gen_end": 170}, None),
+    ("ragged T=S=45 H=2 Hkv=1 D=128", (1, 45, 2, 1, 128), {}, None),
+    ("masked tiles + poison valid=20 of 200 D=72", (1, 200, 4, 4, 72), {"valid_len": 20}, 20),
+    ("head_dim 40 GQA 3:1", (2, 70, 6, 2, 40), {"valid_len": [70, 33]}, None),
+    # The kernel's tile edges: 32-row query blocks with 64-row kv tiles
+    # split over warp pairs while the grid is small, 64-row query blocks
+    # with 32-row kv tiles once it fills the card (B x H raise the grid).
+    ("T=S=63 H=16 D=72", (1, 63, 16, 16, 72), {}, None),
+    ("T=S=64 H=8 Hkv=1 D=256", (1, 64, 8, 1, 256), {}, None),
+    ("T=S=65 H=8 Hkv=1 D=256", (1, 65, 8, 1, 256), {}, None),
+    ("T=S=129 H=16 D=8", (1, 129, 16, 16, 8), {}, None),
+    ("T=S=129 B=4 H=16 D=72 (64-row blocks)", (4, 129, 16, 16, 72), {}, None),
+    ("T=S=65 B=9 H=8 Hkv=1 D=256 (64-row blocks)", (9, 65, 8, 1, 256), {}, None),
+    ("masked kv tiles + poison valid=70 of 300 D=256", (1, 300, 8, 1, 256), {"valid_len": 70}, 70),
+    ("masked kv tiles B=4 valid=[70,300,5,129] D=256 (64-row blocks)", (4, 300, 8, 1, 256),
+     {"valid_len": [70, 300, 5, 129]}, None),
+    ("GQA 8:1 valid=200 window=[230,250) D=256", (1, 276, 8, 1, 256),
+     {"valid_len": 200, "gen_start": 230, "gen_end": 250}, None),
+]
 
 
 def log(msg: str) -> None:
@@ -147,7 +178,7 @@ def phase_kernels(torch):
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         err, ok = _close(torch, out, plain(*args, **kwargs))
-        msg = f"[kernel] {kind:16s} {name:44s} max_abs_err {err:.3e}"
+        msg = f"[kernel] {kind:16s} {name:60s} max_abs_err {err:.3e}"
         if poison_from is not None:
             q, k, v = args[:3]
             k2, v2 = k.clone(), v.clone()
@@ -168,19 +199,7 @@ def phase_kernels(torch):
         q, k, v = fused.split([h * d, hkv * d, hkv * d], dim=-1)
         return q.view(b, t, h, d), k.view(b, t, hkv, d), v.view(b, t, hkv, d)
 
-    flash_cases = [
-        # name, (b, t, h, hkv, d), kwargs, poison_from
-        ("siglip-224 T=S=256 H=16 D=72 (fused views)", (1, 256, 16, 16, 72), {}, None),
-        ("gemma prefill T=S=276 H=8 Hkv=1 D=256", (1, 276, 8, 1, 256), {}, None),
-        ("896-px siglip T=S=4096 H=16 D=72", (1, 4096, 16, 16, 72), {}, None),
-        ("896-px gemma prefill T=S=4110 H=8 Hkv=1 D=256", (1, 4110, 8, 1, 256), {}, None),
-        ("B=2 valid=[37,200] window=[150,170) D=64", (2, 200, 4, 2, 64),
-         {"valid_len": [37, 200], "gen_start": 150, "gen_end": 170}, None),
-        ("ragged T=S=45 H=2 Hkv=1 D=128", (1, 45, 2, 1, 128), {}, None),
-        ("masked tiles + poison valid=20 of 200 D=72", (1, 200, 4, 4, 72), {"valid_len": 20}, 20),
-        ("head_dim 40 GQA 3:1", (2, 70, 6, 2, 40), {"valid_len": [70, 33]}, None),
-    ]
-    for name, (b, t, h, hkv, d), kw, poison in flash_cases:
+    for name, (b, t, h, hkv, d), kw, poison in FLASH_CASES:
         q, k, v = qkv_views(b, t, h, hkv, d)
         if "valid_len" in kw:
             kw = dict(kw, valid_len=torch.tensor(kw["valid_len"], dtype=torch.int32, device=dev))
@@ -505,7 +524,7 @@ def phase_timing(torch, prompt_len):
     # one head, so one SDPA call of one head computes the same function.
     gem_lib = [q_g.reshape(1, 1, prompt_len * 8, 256), k_g.reshape(1, 1, prompt_len, 256),
                v_g.reshape(1, 1, prompt_len, 256)]
-    result["flash_attention"] = _time_rows(torch, "flash_attention", [
+    flash_rows = [
         ("siglip T=S=256 H=16 D=72", 27,
          lambda i: ca.flash_attention(q_s, k_s, v_s, scale=72**-0.5),
          lambda i: ca.flash_attention_plain(q_s, k_s, v_s, scale=72**-0.5),
@@ -515,7 +534,22 @@ def phase_timing(torch, prompt_len):
          lambda i: ca.flash_attention_plain(q_g, k_g, v_g, scale=256**-0.5),
          lambda i: sdpa(*gem_lib, scale=256**-0.5),
          (*_attention_cost(1, prompt_len, prompt_len, 8, 1, 256), "bf16")),
-    ], library="F.scaled_dot_product_attention")
+    ]
+    # The 448- and 896-px presets' lengths (1024 and 4096 image tokens, and
+    # a 20-token prompt in the decoder); not in the per-launch mean.
+    for label, t, h, hkv, d in (("448-px siglip", 1024, 16, 16, 72), ("448-px gemma prefill", 1044, 8, 1, 256),
+                                ("896-px siglip", 4096, 16, 16, 72), ("896-px gemma prefill", 4110, 8, 1, 256)):
+        fused = _rand(torch, gen, (1, t, (h + 2 * hkv) * d), dev)
+        qkv = [x.view(1, t, -1, d) for x in fused.split([h * d, hkv * d, hkv * d], dim=-1)]
+        lib = ([qkv[0].reshape(1, 1, t * h, d), qkv[1].reshape(1, 1, t, d), qkv[2].reshape(1, 1, t, d)] if hkv == 1
+               else [x.transpose(1, 2).contiguous() for x in qkv])
+        flash_rows.append((f"{label} T=S={t} H={h} Hkv={hkv} D={d}", 0,
+                           lambda i, a=qkv, d=d: ca.flash_attention(*a, scale=d**-0.5),
+                           lambda i, a=qkv, d=d: ca.flash_attention_plain(*a, scale=d**-0.5),
+                           lambda i, a=lib, d=d: sdpa(*a, scale=d**-0.5),
+                           (*_attention_cost(1, t, t, h, hkv, d), "bf16")))
+    result["flash_attention"] = _time_rows(torch, "flash_attention", flash_rows,
+                                           library="F.scaled_dot_product_attention")
     s_main = prompt_len + MAX_NEW_TOKENS
     rows = []
     # The main path's length, then about the 448-px and 896-px presets' lengths.

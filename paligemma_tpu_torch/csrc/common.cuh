@@ -1,6 +1,7 @@
 // Shared helpers of the kernels: bf16 conversion, warp reductions, the
-// mma.sync m16n8k16 fragment helpers (flash attention, the int8 GEMM), and
-// the LengthMask visibility rule of the reference
+// mma.sync m16n8k16 fragment helpers, cp.async copies, ldmatrix and shared
+// loads and stores (flash attention, the int8 GEMM), the SM count (host),
+// and the LengthMask visibility rule of the reference
 // (paligemma_tpu/ops/attention.py::LengthMask): batch row b sees kv
 // positions [0, valid[b]) and the shared window [win0, win1).
 #pragma once
@@ -73,15 +74,59 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  bf162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// 16 bytes from global to shared memory (shared address `dst`), bypassing
+// L1; `bytes` of them read (16 or 0), the rest zeros.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// row addresses (16 bytes each) of matrix i, and r[i] receives its fragment
+// (row lane / 4, columns 2 (lane % 4) and + 1). With .trans, matrix i is
+// read transposed: r[i] holds rows 2 (lane % 4) and + 1 of column lane / 4.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void st_shared32(unsigned addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+__device__ __forceinline__ uint4 ld_shared128(unsigned addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0,%1,%2,%3}, [%4];\n" : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr));
+  return v;
+}
+
+// The SM count of the current device (host), read once per device: the
+// launches that size their grids by it call this every time.
+inline int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static int counts[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) dev = 0;
+  if (counts[dev] == 0) {
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = sms > 1 ? sms : 1;
+  }
+  return counts[dev];
 }
 
 // One output value of the quant matmuls, fp32 or rounded once to bf16.

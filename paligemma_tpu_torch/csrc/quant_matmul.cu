@@ -316,19 +316,6 @@ __host__ __device__ constexpr int swz(int row, int chunk) {
   return chunk ^ (((row * kRowBytes / 128) & 1) * (kRowBytes / 32));
 }
 
-// 16 bytes from global to shared memory (shared address `dst`), bypassing
-// L1; `bytes` of them read (16 or 0), the rest zeros.
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // mma_16816 without `volatile`: the compiler may schedule the products
 // among the next fragments' loads and widening.
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
@@ -557,16 +544,6 @@ int gemm_blocks_per_sm() {
     int blocks = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gemm_kernel<W, F32OUT>, kGemmThreads, smem);
     return max(blocks, 1);
-  }();
-  return n;
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return max(sms, 1);
   }();
   return n;
 }

@@ -118,18 +118,25 @@ def build() -> Path:
     return out
 
 
+def load(path: Path, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Load a kernel library and declare the types of its entry points
+    ``names`` (each returns a CUDA error code) and of ``pg_error_string``."""
+    lib = ctypes.CDLL(str(path))
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.pg_error_string.argtypes = [ctypes.c_int]
+    lib.pg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, then load the kernel library (once per process)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = load(build())
     lib.pg_quant_matmul_workspace.argtypes = [_int] * 5  # returns bytes, not an error
     lib.pg_quant_matmul_workspace.restype = ctypes.c_longlong
-    lib.pg_error_string.argtypes = [ctypes.c_int]
-    lib.pg_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -128,6 +128,18 @@ def flash_attention(
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, valid_len, scale, gen_start, gen_end)
+    out = launch_flash(q, k, v, valid_len, scale, gen_start, gen_end)
+    flash_attention.launches += 1
+    return out
+
+
+def launch_flash(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len: ValidLen = None,
+    scale: Optional[float] = None, gen_start: Window = None, gen_end: Window = None, lib=None,
+) -> torch.Tensor:
+    """One launch of ``pg_flash_attention`` on CUDA tensors, from the port's
+    kernel library or from ``lib``, a build of another version of
+    ``csrc/flash_attention.cu`` (``scripts/flash_variants.py``); counts nothing."""
     b, t, h, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     _check_cuda("flash_attention", q, k, v, h, hkv, d)
@@ -137,7 +149,7 @@ def flash_attention(
     win = _window(gen_start, gen_end)
     valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    lib = _build.load_library()
+    lib = _build.load_library() if lib is None else lib
     rc = lib.pg_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if valid is None else valid.data_ptr(),
@@ -148,7 +160,6 @@ def flash_attention(
         win[0], win[1], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "flash_attention", rc)
-    flash_attention.launches += 1
     return out
 
 

@@ -38,6 +38,15 @@ def _rand(gen, shape, dev):
     (1, 256, 16, 16, 72, None),
     (1, 100, 8, 1, 256, [61]),
     (2, 77, 4, 2, 64, [77, 20]),
+    # The tile edges: 32-row query blocks with warp pairs splitting 64-row
+    # kv tiles (small grids), 64-row query blocks with 32-row kv tiles
+    # (grids that fill the card).
+    (1, 63, 16, 16, 72, None),
+    (1, 64, 8, 1, 256, None),
+    (1, 65, 8, 1, 256, [40]),
+    (1, 129, 4, 2, 8, None),
+    (4, 129, 16, 16, 72, [129, 64, 65, 1]),
+    (9, 65, 8, 1, 256, None),
 ])
 def test_flash_kernel_matches_plain(cuda, b, t, h, hkv, d, valid):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -49,6 +58,23 @@ def test_flash_kernel_matches_plain(cuda, b, t, h, hkv, d, valid):
     assert ca.launch_counts()["flash_attention"] == before + 1
     torch.testing.assert_close(out, ca.flash_attention_plain(q, k, v, vl, gen_start=t - 5, gen_end=t - 2),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,valid", [
+    (1, 300, 8, 1, 256, 70),    # kv tiles 2-4 of 64 rows wholly masked
+    (4, 300, 8, 1, 256, 5),     # 64-row query blocks, 32-row kv tiles
+    (1, 200, 4, 4, 72, 20),
+])
+def test_flash_kernel_ignores_masked_kv_tiles(cuda, b, t, h, hkv, d, valid):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    fused = _rand(gen, (b, t, (h + 2 * hkv) * d), cuda)  # q, k, v as views of one projection
+    q, k, v = (x.view(b, t, -1, d) for x in fused.split([h * d, hkv * d, hkv * d], dim=-1))
+    vl = torch.full((b,), valid, dtype=torch.int32, device=cuda)
+    out = ca.flash_attention(q, k, v, vl)
+    torch.testing.assert_close(out, ca.flash_attention_plain(q, k, v, vl), rtol=RTOL, atol=ATOL)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, valid:], v2[:, valid:] = 1e4, 1e4
+    assert torch.equal(ca.flash_attention(q, k2, v2, vl), out)
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d,valid", [

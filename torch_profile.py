@@ -14,7 +14,10 @@ arm's cache), after a warm-up:
 - the same two calls under ``torch.profiler`` (CUPTI): device time = the sum
   of the CUDA kernels' own time, by kernel name and by group (the port's
   kernels, cuBLAS, PyTorch's elementwise and reductions), per prefill and per
-  decode token, with the launches of each.
+  decode token, with the launches of each. A trace that holds fewer records
+  of a port kernel than its wrapper's launch count says were launched has
+  lost records: the call is profiled again, up to ``TRIES`` times, and the
+  arm's ``records`` entry keeps the tries and what the last trace lacked.
 
 Prints one summary line per arm and group, and the whole result as one JSON
 line (also written to ``--out`` when given). Needs a CUDA device; exits 2
@@ -31,6 +34,9 @@ import time
 from pathlib import Path
 
 STEPS = 15  # decode tokens per profiled chunk
+TRIES = 3  # profiles of a call whose trace lost kernel records
+# Kernels that one launch of a port wrapper makes, where more than one.
+KERNELS_PER_LAUNCH = {"decode_attention": 3}  # scores, P V, reduce
 # Kernel-name substrings of each group, first match wins.
 GROUPS = [
     ("q4_matmul", ("Int4Rows",)),
@@ -59,6 +65,34 @@ def device_kernels(prof):
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             out[evt.key] = (evt.self_device_time_total, evt.count)
     return out
+
+
+def profiled(torch, fn, setup=lambda: None):
+    """(device kernels, tries, missing): ``fn(setup())`` with
+    only ``fn`` under torch.profiler, again while the trace holds fewer
+    records of a port kernel than the wrappers launched; ``missing`` is
+    {group: records the last trace lacked}, empty when it was whole."""
+    from paligemma_tpu_torch.ops import kernels
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for tries in range(1, TRIES + 1):
+        arg = setup()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn(arg)
+            torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        found = device_kernels(prof)
+        seen = collections.Counter()
+        for name, (_, n) in found.items():
+            seen[group_of(name)] += n
+        missing = {g: n * KERNELS_PER_LAUNCH.get(g, 1) - seen[g] for g, n in launched.items()
+                   if seen[g] < n * KERNELS_PER_LAUNCH.get(g, 1)}
+        if not missing:
+            break
+        print(f"[records] try {tries}: the trace lacks {missing} kernel records", flush=True)
+    return found, tries, missing
 
 
 def summarize(kernels, per: int):
@@ -121,17 +155,16 @@ def main() -> int:
         toks.tolist()
         decode_ms = (time.perf_counter() - t0) * 1e3 / n
 
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof_p:
-            tok0, cache = prefill(m, cache_dtype)
-            torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof_d:
-            generation.decode_steps(m, tok0, cache, n)[0].tolist()
-            torch.cuda.synchronize()
+        kern_p, tries_p, missing_p = profiled(torch, lambda _: prefill(m, cache_dtype))
+        kern_d, tries_d, missing_d = profiled(  # each try on a fresh cache
+            torch, lambda pre: generation.decode_steps(m, *pre, n)[0].tolist(),
+            lambda: prefill(m, cache_dtype))
         rec = {
             "prefill_host_ms": prefill_ms, "decode_host_ms_per_token": decode_ms,
-            "prefill": summarize(device_kernels(prof_p), 1),
-            "decode_per_token": summarize(device_kernels(prof_d), n),
+            "prefill": summarize(kern_p, 1),
+            "decode_per_token": summarize(kern_d, n),
+            "records": {"prefill": {"tries": tries_p, "missing": missing_p},
+                        "decode": {"tries": tries_d, "missing": missing_d}},
         }
         rec["prefill"]["busy_share_of_host_ms"] = rec["prefill"]["device_ms"] / prefill_ms
         rec["decode_per_token"]["busy_share_of_host_ms"] = rec["decode_per_token"]["device_ms"] / decode_ms
