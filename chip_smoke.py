@@ -15,13 +15,18 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    masked tiles, poisoned K/V past the valid length, head_dim 72, and the
    flash kernel's tile edges in both of its tilings: T=S at 63, 64, 65 and
    129, whole kv tiles masked, head_dim 8 and 256, GQA 8:1 with a window); decode
-   attention over an int8 cache at S = 308, 1100 and 4128 with a poisoned
-   tail, bit-identical to the bf16 kernel over the dequantized cache. The
-   quant kernels (q8_matmul, q4_matmul, w4a8_gemv, quant_rows and the
-   mlp_w4a8 they make up) at every decode shape of the 3B model, at 64 and
-   276 rows, at the flat q4a8_matmul shapes, at ragged rows and widths,
-   and at the GEMM's edges (65 rows, O not a multiple of 128, strided
-   rows, split K with D not a multiple of the split, fp32 out, 1044 rows);
+   attention at the cluster's edges (S = 1, 17, the main path's 308, one
+   past each cluster size the host picks, 4128 with one visible position,
+   blocks with no visible position under a poisoned tail) and over an int8
+   cache at S = 308, 1100 and 4128 with a poisoned tail, bit-identical to
+   the bf16 kernel over the dequantized cache. The quant kernels
+   (q8_matmul, q4_matmul, w4a8_gemv, quant_rows and the mlp_w4a8 they make
+   up) at every decode shape of the 3B model, at 64 and 276 rows, at the
+   flat q4a8_matmul shapes, at ragged rows and widths, at the GEMV's edges
+   (M in 1, 2, 3, 8, 9, 33, 64 by O in 200, 201, 2560 by D in 2048, 16416,
+   bf16 and fp32 out), and at the GEMM's edges (65 rows, O not a multiple
+   of 128, strided rows, split K with D not a multiple of the split, fp32
+   out, 1044 rows);
    the int8 x int8 projection (torch._int_mm) against its exact plain
    version.
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
@@ -123,6 +128,10 @@ FLASH_CASES = [
     ("GQA 8:1 valid=200 window=[230,250) D=256", (1, 276, 8, 1, 256),
      {"valid_len": 200, "gen_start": 230, "gen_end": 250}, None),
 ]
+# The q8/q4 GEMV's edge cases (phase 3): rows of x, output rows, depth.
+GEMV_EDGE_ROWS = (1, 2, 3, 8, 9, 33, 64)
+GEMV_EDGE_OUT = (200, 201, 2560)
+GEMV_EDGE_DEPTH = (2048, 16416)
 
 
 def log(msg: str) -> None:
@@ -215,6 +224,18 @@ def phase_kernels(torch):
         ("ragged S=77 valid=77 D=128", (1, 77, 8, 1, 128), [77], {}, None),
         ("masked chunks + poison valid=40 of 300", (1, 300, 8, 1, 256), [40], {}, 40),
         ("head_dim 72 H=Hkv=16", (1, 257, 16, 16, 72), [250], {}, None),
+        # The cluster's edges: one position, the main path's length, one past
+        # each cluster size the host picks (1, 2, 4, 8, 16 blocks), one
+        # visible position, blocks with no visible position.
+        ("S=1 valid=1", (1, 1, 8, 1, 256), [1], {}, None),
+        ("S=17 D=64", (1, 17, 8, 1, 64), [17], {}, None),
+        ("main path S=308 valid=292", (1, 308, 8, 1, 256), [292], {}, None),
+        ("cluster edge S=65", (1, 65, 8, 1, 256), [65], {}, None),
+        ("cluster edge S=129", (1, 129, 8, 1, 256), [129], {}, None),
+        ("cluster edge S=257", (1, 257, 8, 1, 256), [257], {}, None),
+        ("cluster edge S=513", (1, 513, 8, 1, 256), [513], {}, None),
+        ("S=4128 valid=1 + poison", (1, 4128, 8, 1, 256), [1], {}, 1),
+        ("masked blocks + poison valid=40 of 1100", (1, 1100, 8, 1, 256), [40], {}, 40),
     ]
     for name, (b, s, h, hkv, d), valid, kw, poison in decode_cases:
         kc = _rand(torch, gen, (3, b, s, hkv, d), dev)[1]  # a layer of a stacked cache
@@ -348,6 +369,29 @@ def phase_quant_kernels(torch):
     held("q4_matmul", "strided GEMM rows M=130 O=520 D=2048 (stride 4096)",
          quant.q4_matmul(wide_gemm[:, 1024:3072], packed, s),
          quant.q4_matmul_plain(wide_gemm[:, 1024:3072], packed, s))
+
+    # The GEMV's edges in both formats: each count of n8 tiles of x rows,
+    # O with a ragged last 16-row tile, D with a ragged last chunk of K, bf16
+    # and fp32 out.
+    for m in GEMV_EDGE_ROWS:
+        worst = {"q8_matmul": 0.0, "q4_matmul": 0.0}
+        for o in GEMV_EDGE_OUT:
+            for d in GEMV_EDGE_DEPTH:
+                x = _rand(torch, gen, (m, d), dev)
+                q8, q4 = ints((o, d), -127, 128), quant.pack_int4(ints((o, d), -7, 8))
+                s8, s4 = scales(o, d, 73.0), scales(o, d, 4.3)
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    for kind, got, ref in (
+                        ("q8_matmul", quant.q8_matmul(x, q8, s8, out_dtype), quant.q8_matmul_plain(x, q8, s8, out_dtype)),
+                        ("q4_matmul", quant.q4_matmul(x, q4, s4, out_dtype), quant.q4_matmul_plain(x, q4, s4, out_dtype)),
+                    ):
+                        torch.cuda.synchronize()
+                        err, ok = _close(torch, got, ref)
+                        check(ok, f"{kind} GEMV edge M={m} O={o} D={d} {out_dtype}: kernel disagrees")
+                        worst[kind] = max(worst[kind], err)
+                        max_err[kind] = max(max_err[kind], err)
+        log(f"[kernel] GEMV edges M={m:<2d} O in {GEMV_EDGE_OUT} D in {GEMV_EDGE_DEPTH}, bf16 and fp32 out: "
+            f"max_abs_err q8 {worst['q8_matmul']:.3e} q4 {worst['q4_matmul']:.3e}")
 
     # The int8 x int8 projection (prefill_a8): torch._int_mm, not a kernel of
     # the port; exact integer sums and the same epilogue as its plain version.
@@ -606,6 +650,7 @@ def phase_timing(torch, prompt_len):
         q8_row("decode gate_up M=1 O=32768 D=2048", 18, 1, 32768, 2048),
         q8_row("decode down M=1 O=2048 D=16384", 18, 1, 2048, 16384),
         q8_row("decode lm_head M=1 O=257152 D=2048 fp32", 1, 1, 257152, 2048, f32=True),
+        q8_row("GEMV M=64 O=32768 D=2048", 0, 64, 32768, 2048),
         q8_row(f"prefill qkv M={prompt_len} O=2560 D=2048", 0, prompt_len, 2560, 2048),
         q8_row(f"prefill gate_up M={prompt_len} O=32768 D=2048", 0, prompt_len, 32768, 2048),
         q8_row(f"prefill down M={prompt_len} O=2048 D=16384", 0, prompt_len, 2048, 16384),

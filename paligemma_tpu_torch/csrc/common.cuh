@@ -1,7 +1,7 @@
 // Shared helpers of the kernels: bf16 conversion, warp reductions, the
-// mma.sync m16n8k16 fragment helpers, cp.async copies, ldmatrix and shared
-// loads and stores (flash attention, the int8 GEMM), the SM count (host),
-// and the LengthMask visibility rule of the reference
+// mma.sync m16n8k16 products (mma_16816, and mma_bf16 that the compiler may
+// reorder), cp.async copies, ldmatrix and shared loads and stores, the SM
+// count (host), and the LengthMask visibility rule of the reference
 // (paligemma_tpu/ops/attention.py::LengthMask): batch row b sees kv
 // positions [0, valid[b]) and the shared window [win0, win1).
 #pragma once
@@ -64,6 +64,15 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* out) {
 __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma_16816 without `volatile`: the compiler may schedule the products
+// among the fragment loads.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

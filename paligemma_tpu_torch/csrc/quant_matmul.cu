@@ -15,35 +15,34 @@
 //   - pallas_quant.py::q4_matmul (kernel body _q4_kernel): the int4
 //     weight-only mode's qkv, o, gate_up and down, prefill and decode.
 // The two are one design with two weight formats (Int8Rows, Int4Rows): a
-// 16-byte weight vector holds 16 int8 or 32 int4 columns, widened to fp32
-// (GEMV) or bf16 (GEMM) on the way in. The int4 layout is the port's
-// (ops/quant.py::pack_int4): within each group of 8 columns, byte 4i + k
-// holds column 8i + k in its low nibble and 8i + 4 + k in its high nibble,
-// so for a 32-bit word w, (w << 4) & 0xF0F0F0F0 and w & 0xF0F0F0F0 are 16
-// times four consecutive columns each, exact in int8 lanes; the GEMV's
-// widened values are 16 q, and its sums are multiplied by 1/16 (exact)
-// before the scale. The GEMM widens q itself.
+// 16-byte weight vector holds 16 int8 or 32 int4 columns, widened exactly
+// to bf16 on the way in, and both tilings run on mma.sync as W x^T. The
+// int4 layout is the port's (ops/quant.py::pack_int4): within each group of
+// 8 columns, byte 4i + k holds column 8i + k in its low nibble and
+// 8i + 4 + k in its high nibble.
 //
 // What bounds it on the H100:
 //   - decode (M = 1): the weight bytes. One byte per weight at 3.35 TB/s
 //     for int8, e.g. 20.0 us for gate_up (32768 x 2048) and 157 us for the
 //     lm_head; half a byte for int4 (gate_up 10.0 us). The arithmetic is 2
-//     flop per int8 byte (4 per int4 byte), far below the card's ridge;
-//     int4 doubles the widening work per byte.
+//     flop per int8 byte (4 per int4 byte), far below the card's ridge,
+//     but the widening is several instructions per 4 weights, so the issue
+//     rate is close behind the byte rate. The small projections (qkv, o:
+//     1-5 MB) are bound by a launch's fixed cost and one memory latency.
 //   - prefill (M ~ 276, and SigLIP's 256 rows): the tensor cores, at
 //     2 * M * O * D flop (1.09 TFLOP over the 18 decoder layers, 1.1 ms at
 //     989 TFLOP/s bf16).
 // The design:
-//   - GEMV tiling for M <= 64: one warp per int8 output row (two per int4
-//     row, so a warp streams the same bytes), 16-byte weight loads with
-//     four per row in flight per lane, each int8 widened to fp32 by a
-//     byte permute and a subtraction (no int-to-float conversions, which
-//     would otherwise be the issue limit at this byte rate); the rows of x
-//     are staged once per block in shared memory (up to 32 KB, in passes
-//     over D) and each lane reads its 16-byte pieces of them in a rotated
-//     order, free of bank conflicts; fp32 accumulators per row of x, a warp
-//     reduction and the scale in the epilogue. More than 8 rows of x are taken 8 at a time
-//     (blockIdx.y), so the weights are read once per 8 rows.
+//   - GEMV tiling for M <= 64 (gemv_kernel): a warp owns 16 output rows,
+//     the mma's A operand, and the rows of x are its B operand in 1, 2, 4
+//     or 8 n8 tiles, so each weight byte is read and widened once for all
+//     rows of x. The weights stream through a per-warp cp.async ring (4
+//     stages of 128 bytes a row) with no block barrier; x is read through
+//     L1 (at M <= 8, a step's x before its weights are waited for). While
+//     the 16-row tiles give fewer than 8 warps an SM (qkv, o, down at
+//     decode), K is split over the warps of a block (ksplit = 2, 4 or 8,
+//     chosen on the host from O and D) and the partial tiles are added in
+//     shared memory in split order.
 //   - GEMM tiling for M > 64: mma.sync m16n8k16 bf16 with fp32
 //     accumulators, computed as W x^T: the widened weights are the mma's A
 //     operand, built in registers in the order it takes them, and x its B
@@ -76,12 +75,19 @@
 //     (a counter per tile, which that block resets to zero) adds the
 //     partials in split order and applies the scale. The sums do not
 //     depend on the order the blocks ran in; no float atomics.
-//   - What bounds it now (measured on the H100): latency more than issue.
-//     The loop runs ~4 instructions an mma (the widening and the copies
-//     beside it) at ~12 clocks an mma on each scheduler, with 2 warps a
-//     scheduler (180-184 registers): gate_up at 276 rows is about 2x
-//     F.linear on a bf16 copy. 989 TFLOP/s is the wgmma rate; wgmma and
+//   - What bounds the GEMM now (measured on the H100): latency more than
+//     issue. The loop runs ~4 instructions an mma (the widening and the
+//     copies beside it) at ~12 clocks an mma on each scheduler, with 2
+//     warps a scheduler (180-188 registers): gate_up at 276 rows is about
+//     2x F.linear on a bf16 copy. 989 TFLOP/s is the wgmma rate; wgmma and
 //     TMA copies are later work.
+//   - What bounds the GEMV now (measured on the H100, M = 1): gate_up and
+//     down reach 63-80% of their byte floors, the lm_head 90%; the int8
+//     widening (~10 instructions per 4 weights) runs after each stage
+//     lands, so the small projections (qkv, o: 1-2 steps a warp) end in a
+//     chain of widening, products and the split's sum after the last
+//     bytes arrive. At 64 rows the products and x's reads through L1 (x
+//     re-read by every 16-row warp tile) bound it.
 #include "common.cuh"
 
 namespace {
@@ -114,17 +120,17 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t t) {
 struct Int8Rows {
   static constexpr int kColsPerVec = 16;  // columns of one 16-byte vector
   static constexpr int kColsPerByte = 1;
-  static constexpr float kUnit = 1.f;     // the widened values are q
-  // The eight columns 8j .. 8j+7 of the vector (j = 0, 1) widened to fp32.
-  static __device__ __forceinline__ void widen8(const uint4& v, int j, float* f) {
-    s8x4_to_float(j ? v.z : v.x, f);
-    s8x4_to_float(j ? v.w : v.y, f + 4);
-  }
-  // GEMM: eight consecutive columns as the bf16 pairs (0,1) (2,3) (4,5) (6,7).
+  // Eight consecutive columns as the bf16 pairs (0,1) (2,3) (4,5) (6,7).
   using Frag = uint2;
   static __device__ __forceinline__ void widen_bf16(const Frag& v, uint32_t* b) {
     s8x4_to_bf16x2(v.x, b);
     s8x4_to_bf16x2(v.y, b + 2);
+  }
+  // GEMV: a 16-byte vector as the bf16 pairs of its columns, in order.
+  static constexpr int kPieceRegs = 8;
+  static __device__ __forceinline__ void widen_piece(const uint4& v, uint32_t* b) {
+    widen_bf16(make_uint2(v.x, v.y), b);
+    widen_bf16(make_uint2(v.z, v.w), b + 4);
   }
 };
 
@@ -132,16 +138,8 @@ struct Int8Rows {
 struct Int4Rows {
   static constexpr int kColsPerVec = 32;
   static constexpr int kColsPerByte = 2;
-  static constexpr float kUnit = 0.0625f;  // the widened values are 16 q
-  // Columns 8j .. 8j+7 (j = 0 .. 3) are the nibbles of word j.
-  static __device__ __forceinline__ void widen8(const uint4& v, int j, float* f) {
-    const uint32_t w = j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-    s8x4_to_float((w << 4) & 0xF0F0F0F0u, f);
-    s8x4_to_float(w & 0xF0F0F0F0u, f + 4);
-  }
-  // GEMM: the eight columns of one word as the bf16 pairs (0,1) (2,3)
-  // (4,5) (6,7) of q itself (not 16 q): columns k and 4 + k are the low
-  // and high nibble of byte k.
+  // The eight columns of one word as the bf16 pairs (0,1) (2,3) (4,5) (6,7)
+  // of q: columns k and 4 + k are the low and high nibble of byte k.
   using Frag = uint32_t;
   static __device__ __forceinline__ void widen_bf16(const Frag& w, uint32_t* b) {
     const uint32_t hi = w >> 4;
@@ -150,132 +148,231 @@ struct Int4Rows {
     b[2] = nibbles_to_bf16x2(__byte_perm(hi, 0u, 0x4140));
     b[3] = nibbles_to_bf16x2(__byte_perm(hi, 0u, 0x4342));
   }
+  static constexpr int kPieceRegs = 16;
+  static __device__ __forceinline__ void widen_piece(const uint4& v, uint32_t* b) {
+    widen_bf16(v.x, b);
+    widen_bf16(v.y, b + 4);
+    widen_bf16(v.z, b + 8);
+    widen_bf16(v.w, b + 12);
+  }
 };
 
-// The weight row `row` of a (O, D) matrix in format W, as bytes.
-template <class W>
-__device__ __forceinline__ const uint8_t* weight_row(const uint8_t* w, int row, int d) {
-  return w + (long long)row * (d / (W::kColsPerVec / 16));
-}
-
 // ---------------------------------------------------------------------------
-// GEMV tiling (M <= 64)
+// GEMV tiling (M <= 64), tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kGemvMaxRows = 64;
 constexpr int kGemvWarps = 8;
 constexpr int kGemvThreads = 32 * kGemvWarps;
-constexpr int kGemvSmemBytes = 32768;  // staged rows of x per pass
-constexpr int kGemvUnroll = 4;         // 16-byte weight vectors per lane and row in flight
+constexpr int kGemvStep = 128;   // bytes of each weight row a ring stage holds
 
-// Output rows per warp: one int8 row, two int4 rows, so that a warp streams
-// the same bytes per pass in both formats (one int4 row of D = 2048 is only
-// two vectors a lane, too little work to amortize the block's staging of x).
+// A warp's ring: 3 stages of int8 rows, 2 of int4 rows (a step holds twice
+// the columns, so twice the widening and products a stage).
 template <class W>
-__host__ __device__ constexpr int gemv_rows() {
-  return W::kColsPerVec / 16;
+__host__ __device__ constexpr int gemv_stages() {
+  return W::kColsPerByte == 1 ? 3 : 2;
+}
+template <class W>
+__host__ __device__ constexpr int gemv_warp_bytes() {
+  return gemv_stages<W>() * 16 * kGemvStep;
 }
 
-template <class W, int MT, bool F32OUT>
-__global__ void __launch_bounds__(kGemvThreads)
+// y[0..m, rows] of x (M, D) @ W (O, D)^T * scale on mma.sync m16n8k16,
+// computed as W x^T: the widened weights are the A operand (16 output rows
+// a warp) and the rows of x the B operand, NT n8 tiles (8 NT >= M). Each
+// weight byte is read and widened once for all the rows of x.
+//
+// Weights: each warp streams its 16 rows through its own cp.async ring in
+// shared memory, gemv_stages<W>() steps of kGemvStep bytes a row deep; a copy
+// instruction moves 512 contiguous bytes of rows (whole 128-byte lines),
+// and the warp waits only on its own copies (no block barrier). A step's
+// 16-byte chunk c of row r is stored at chunk c ^ 4 (r & 1), so that the
+// fragment loads are free of bank conflicts.
+//
+// k order: a step is a run of quarters of 4 chunks (64 int8 or 128 int4
+// columns each); in each, thread (g = lane / 4, t4 = lane % 4) takes chunk
+// t4 of rows g and g + 8, widened in column order to kPieceRegs bf16 pairs,
+// and the same columns of x row 8 nt + g (32 or 64 bytes, read through L1;
+// with one n8 tile, a step's x before its weights are waited for). The
+// pairs 2t, 2t + 1 are the thread's k 2t4 (+1), 2t4 + 8 (+1) of the
+// quarter's product t: the same permutation for W and x.
+//
+// Split K: a block holds kGemvWarps / ksplit output tiles of 16 rows, each
+// taken by ksplit = 1 << ks_log2 warps over consecutive ranges of steps;
+// the ksplit partial tiles are added in shared memory (beside the rings)
+// in split order. Blocks an SM: 3 with one n8 tile (at most 85 registers),
+// else 2.
+template <class W, int NT, bool F32OUT>
+__global__ void __launch_bounds__(kGemvThreads, NT == 1 ? 3 : 2)
     gemv_kernel(const bf16* __restrict__ x, long long x_stride, const uint8_t* __restrict__ w,
-                const float* __restrict__ scale, void* __restrict__ out, int m, int o, int d) {
-  constexpr int kChunk = kGemvSmemBytes / (2 * MT);  // columns of x per pass
-  constexpr int kCols = W::kColsPerVec;
-  constexpr int kParts = kCols / 8;  // 16-byte pieces of x per weight vector
-  constexpr int kRows = gemv_rows<W>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* x_s = reinterpret_cast<bf16*>(smem);  // MT rows of ld columns
+                const float* __restrict__ scale, void* __restrict__ out, int m, int o, int d, int ks_log2) {
+  constexpr int kR = W::kPieceRegs;  // 32-bit registers of a widened chunk, and of x's columns
+  constexpr int kPieceCols = W::kColsPerVec;
+  constexpr int kChunks = kGemvStep / 16;    // 16-byte chunks of a row a step
+  constexpr int kQuarters = kGemvStep / 64;  // runs of 4 chunks a step
+  extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // A lane's x columns are kCols * 2 bytes from its neighbour's, so the
-  // lanes of a quarter-warp would read their 16-byte pieces from the same
-  // banks (2-way for int8, 4-way for int4). With more than one row of x,
-  // where those reads are the limit, each lane takes its pieces in a
-  // rotated order, so that one instruction's eight reads hit eight
-  // different 16-byte bank groups. (At M = 1 the rotation's selects cost
-  // more than the conflicts: measured.)
-  const int rot = MT == 1 ? 0 : (lane / (8 / kParts)) % kParts;
-  const int m0 = blockIdx.y * MT;
-  const int rows = min(MT, m - m0);
-  const int row0 = (blockIdx.x * kGemvWarps + warp) * kRows;  // this warp's output rows
-  const int ld = min(d, kChunk);
-  // A warp past O walks a valid row and stores nothing.
-  const uint8_t* wrow[kRows];
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) wrow[k] = weight_row<W>(w, min(row0 + k, o - 1), d);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int ksplit = 1 << ks_log2, ks = warp & (ksplit - 1);
+  const int row0 = ((blockIdx.x * kGemvWarps + warp) >> ks_log2) * 16;
+  const int row_bytes = d / W::kColsPerByte;
+  const int steps = (row_bytes + kGemvStep - 1) / kGemvStep;
+  const int per = (steps + ksplit - 1) >> ks_log2;
+  const int s0 = ks * per, n = max(0, min(steps, s0 + per) - s0);  // this warp's steps
+  constexpr int kStagesW = gemv_stages<W>();
+  const unsigned ring = static_cast<unsigned>(__cvta_generic_to_shared(smem)) + warp * gemv_warp_bytes<W>();
 
-  float acc[MT][kRows];
+  // The copies: copy j of lane l moves chunk (32 j + l) % kChunks of row
+  // (32 j + l) / kChunks of each step. Rows past O are read as the last row
+  // (their outputs are not stored).
+  constexpr int kCopies = 16 * kChunks / 32;
+  const uint8_t* src[kCopies];
+  unsigned dst[kCopies];
+  int col_byte[kCopies];
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
+  for (int j = 0; j < kCopies; ++j) {
+    const int r = (32 * j + lane) / kChunks, c = (32 * j + lane) % kChunks;
+    src[j] = w + (long long)min(row0 + r, o - 1) * row_bytes + 16 * c;
+    dst[j] = r * kGemvStep + 16 * (c ^ 4 * (r & 1));
+    col_byte[j] = 16 * c;
+  }
+  auto issue = [&](int i) {  // step i of this warp into its stage
+    if (i < n) {
+      const int at = (s0 + i) * kGemvStep;
+      const unsigned stage = ring + (i % kStagesW) * 16 * kGemvStep;
 #pragma unroll
-    for (int k = 0; k < kRows; ++k) acc[r][k] = 0.f;
-
-  for (int d0 = 0; d0 < d; d0 += kChunk) {
-    const int dc = min(kChunk, d - d0);  // a multiple of kCols
-    const int vecs = dc / 8;
-    __syncthreads();  // the previous pass no longer reads x_s
-    for (int i = threadIdx.x; i < MT * vecs; i += kGemvThreads) {
-      const int r = i / vecs, c = (i - r * vecs) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < rows) v = *reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * x_stride + d0 + c);
-      *reinterpret_cast<uint4*>(x_s + r * ld + c) = v;
-    }
-    __syncthreads();
-    // Lane l takes the kCols columns at kCols * (l + 32 * j) of the pass.
-    for (int c0 = lane * kCols; c0 < dc; c0 += 32 * kCols * kGemvUnroll) {
-      uint4 wv[kGemvUnroll][kRows];
-#pragma unroll
-      for (int u = 0; u < kGemvUnroll; ++u) {
-        const int c = c0 + 32 * kCols * u;
-#pragma unroll
-        for (int k = 0; k < kRows; ++k)
-          wv[u][k] = c < dc ? __ldg(reinterpret_cast<const uint4*>(wrow[k] + (d0 + c) / (kCols / 16)))
-                            : make_uint4(0, 0, 0, 0);
+      for (int j = 0; j < kCopies; ++j) {
+        const bool ok = at + col_byte[j] < row_bytes;  // chunks past D are zero-filled
+        cp_async16(stage + dst[j], ok ? src[j] + at : src[j], ok ? 16 : 0);
       }
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int u = 0; u < kGemvUnroll; ++u) {
-        const int c = c0 + 32 * kCols * u;
-        if (c < dc) {
+  for (int i = 0; i < kStagesW - 1; ++i) issue(i);
+  // The scales of this thread's output rows, read ahead of the epilogue.
+  const float sc[2] = {scale[min(row0 + g, o - 1)], scale[min(row0 + g + 8, o - 1)]};
+
+  // x's 16-byte pieces of this thread's columns of quarter q of step i,
+  // row 8 nt + g (zeros past M or D, or past this warp's steps).
+  auto load_x = [&](int i, int q, int nt, uint32_t* xv) {
+    const int r = 8 * nt + g;
+    const int col = ((s0 + i) * kGemvStep + 64 * q) * W::kColsPerByte + t4 * kPieceCols;
+    if (i < n && r < m && col < d) {
+      const uint4* xp = reinterpret_cast<const uint4*>(x + (long long)r * x_stride + col);
 #pragma unroll
-          for (int j = 0; j < kParts; ++j) {
-            const int part = (j + rot) % kParts;
-            float wf[kRows][8];
+      for (int e = 0; e < kR / 4; ++e) reinterpret_cast<uint4*>(xv)[e] = __ldg(xp + e);
+    } else {
 #pragma unroll
-            for (int k = 0; k < kRows; ++k) W::widen8(wv[u][k], part, wf[k]);
+      for (int e = 0; e < kR; ++e) xv[e] = 0;
+    }
+  };
+
+  // With one n8 tile, the products of a quarter alternate between two
+  // accumulators (added at the end), which halves their dependent chain.
+  constexpr int kAcc = NT == 1 ? 2 : 1;
+  float acc[NT][4], acc2[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int r = 0; r < MT; ++r) {
-              float xf[8];
-              bf16x8_to_float(*reinterpret_cast<const uint4*>(x_s + r * ld + c + 8 * part), xf);
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    // With one n8 tile, x of the whole step is read before the wait.
+    uint32_t x_step[kQuarters][kR];
+    if (NT == 1) {
 #pragma unroll
-              for (int k = 0; k < kRows; ++k)
+      for (int q = 0; q < kQuarters; ++q) load_x(i, q, 0, x_step[q]);
+    }
+    cp_async_wait<kStagesW - 2>();  // step i has landed (this lane's copies)
+    __syncwarp();                      // ... every lane's; and the stage read last step is free
+    issue(i + kStagesW - 1);
+    const unsigned stage = ring + (i % kStagesW) * 16 * kGemvStep;
 #pragma unroll
-                for (int e = 0; e < 8; ++e) acc[r][k] = fmaf(wf[k][e], xf[e], acc[r][k]);
-            }
-          }
+    for (int q = 0; q < kQuarters; ++q) {
+      const int c = (4 * q + t4) ^ 4 * (g & 1);
+      const uint4 lo_raw = ld_shared128(stage + g * kGemvStep + 16 * c);
+      const uint4 hi_raw = ld_shared128(stage + (g + 8) * kGemvStep + 16 * c);
+      uint32_t lo[kR], hi[kR];
+      W::widen_piece(lo_raw, lo);
+      W::widen_piece(hi_raw, hi);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t xv[kR];
+        if (NT == 1) {
+#pragma unroll
+          for (int e = 0; e < kR; ++e) xv[e] = x_step[q][e];
+        } else {
+          load_x(i, q, nt, xv);
+        }
+#pragma unroll
+        for (int t = 0; t < kR / 2; ++t) {
+          const uint32_t a[4] = {lo[2 * t], hi[2 * t], lo[2 * t + 1], hi[2 * t + 1]};
+          mma_bf16(kAcc == 2 && (t & 1) ? acc2 : acc[nt], a, xv[2 * t], xv[2 * t + 1]);
         }
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the loop (the tail groups are empty)
+  if (kAcc == 2) {
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int row = row0 + k;
+    for (int e = 0; e < 4; ++e) acc[0][e] += acc2[e];
+  }
+
+  if (ksplit > 1) {
+    float* red = reinterpret_cast<float*>(smem + kGemvWarps * gemv_warp_bytes<W>());  // [warp][NT * 4][lane]
 #pragma unroll
-    for (int r = 0; r < MT; ++r) {
-      const float v = warp_sum(acc[r][k]);
-      if (lane == 0 && r < rows && row < o)
-        store_out<F32OUT>(out, (long long)(m0 + r) * o + row, v * W::kUnit * scale[row]);
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[((warp * NT + nt) * 4 + e) * 32 + lane] = acc[nt][e];
+    __syncthreads();
+    if (ks != 0) return;
+#pragma unroll
+    for (int s = 1; s < kGemvWarps; ++s) {
+      if (s >= ksplit) break;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] += red[(((warp + s) * NT + nt) * 4 + e) * 32 + lane];
     }
+  }
+  // acc[nt]: output rows row0 + g (+ 8), rows of x 8 nt + 2 t4 (+ 1).
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= o) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * nt + 2 * t4 + e;
+        if (r < m) store_out<F32OUT>(out, (long long)r * o + row, acc[nt][2 * h + e] * sc[h]);
+      }
   }
 }
 
-template <class W, int MT, bool F32OUT>
+// Warps of a block on one output tile, as a power of two: the smallest (at
+// most kGemvWarps) that gives every SM kGemvWarps warps, while each warp
+// keeps at least one step of K.
+template <class W>
+int gemv_split_log2(int o, int d) {
+  const long long tiles = (o + 15) / 16;
+  const int steps = (d / W::kColsPerByte + kGemvStep - 1) / kGemvStep;
+  int lg = 0;
+  while ((1 << lg) < kGemvWarps && tiles << lg < (long long)sm_count() * kGemvWarps && steps >= 2 << lg) ++lg;
+  return lg;
+}
+
+template <class W, int NT, bool F32OUT>
 cudaError_t launch_gemv(const bf16* x, long long x_stride, const uint8_t* w, const float* scale,
                         void* out, int m, int o, int d, cudaStream_t stream) {
-  constexpr int kChunk = kGemvSmemBytes / (2 * MT);
-  constexpr int kBlockRows = kGemvWarps * gemv_rows<W>();
-  const dim3 grid((o + kBlockRows - 1) / kBlockRows, (m + MT - 1) / MT);
-  const size_t smem = sizeof(bf16) * MT * (size_t)min(d, kChunk);
-  gemv_kernel<W, MT, F32OUT><<<grid, kGemvThreads, smem, stream>>>(x, x_stride, w, scale, out, m, o, d);
+  // The rings, then the split's partial tiles (fp32, a warp's NT x 4 x 32).
+  constexpr int kSmem = kGemvWarps * (gemv_warp_bytes<W>() + NT * 4 * 32 * 4);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gemv_kernel<W, NT, F32OUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  const int lg = gemv_split_log2<W>(o, d);
+  const int tiles_per_block = kGemvWarps >> lg;
+  const int tiles = (o + 15) / 16;
+  gemv_kernel<W, NT, F32OUT><<<(tiles + tiles_per_block - 1) / tiles_per_block, kGemvThreads, kSmem, stream>>>(
+      x, x_stride, w, scale, out, m, o, d, lg);
   return cudaGetLastError();
 }
 
@@ -314,15 +411,6 @@ __host__ __device__ constexpr int gemm_stage_bytes() {
 template <int kRowBytes>
 __host__ __device__ constexpr int swz(int row, int chunk) {
   return chunk ^ (((row * kRowBytes / 128) & 1) * (kRowBytes / 32));
-}
-
-// mma_16816 without `volatile`: the compiler may schedule the products
-// among the next fragments' loads and widening.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The copies of one operand tile (kRows rows of kRowBytes bytes a stage)
@@ -586,9 +674,9 @@ template <class W, bool F32OUT>
 cudaError_t dispatch(const bf16* x, long long x_stride, const uint8_t* w, const float* scale,
                      void* out, int m, int o, int d, void* ws, int* counters, cudaStream_t st) {
   if (m > kGemvMaxRows) return launch_gemm<W, F32OUT>(x, x_stride, w, scale, out, m, o, d, ws, counters, st);
-  if (m == 1) return launch_gemv<W, 1, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
-  if (m == 2) return launch_gemv<W, 2, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
-  if (m <= 4) return launch_gemv<W, 4, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
+  if (m <= 8) return launch_gemv<W, 1, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
+  if (m <= 16) return launch_gemv<W, 2, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
+  if (m <= 32) return launch_gemv<W, 4, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
   return launch_gemv<W, 8, F32OUT>(x, x_stride, w, scale, out, m, o, d, st);
 }
 

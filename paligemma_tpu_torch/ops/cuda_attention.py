@@ -35,7 +35,6 @@ from paligemma_tpu_torch.ops.attention import MASK_VALUE as NEG_INF
 from paligemma_tpu_torch.ops.attention import LengthMask
 
 MAX_HEAD_DIM = 256
-DECODE_CHUNK = 32  # cache positions per block of the decode kernel
 
 ValidLen = Optional[Union[int, torch.Tensor]]
 Window = Optional[Union[int, torch.Tensor]]
@@ -215,7 +214,10 @@ def decode_attention(
     (B, S, Hkv, D), typically one layer's view of the (L, B, S, Hkv, D)
     cache, read through their strides: in q.dtype, or int8 with the
     (B, S, Hkv) fp32 row scales ``k_scale`` and ``v_scale`` (views of the
-    int8 cache's scales). Returns (B, 1, H, D) in q.dtype.
+    int8 cache's scales). Returns (B, 1, H, D) in q.dtype. One launch: a
+    thread-block cluster per (batch row, kv head) holds the row's scores in
+    shared memory, so a cache longer than about 26000 positions (head_dim
+    256) raises a CUDA error.
     """
     if q.device.type == "cpu":
         return decode_attention_plain(
@@ -236,22 +238,17 @@ def decode_attention(
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
         )
-    if (h // hkv) * (d + DECODE_CHUNK) * 4 > 48 * 1024:
-        raise ValueError("decode_attention: the query group does not fit shared memory")
+    if h // hkv > 8:
+        raise ValueError(f"decode_attention: the kernel takes at most 8 query heads per kv head, got {h // hkv}")
     scale = d**-0.5 if scale is None else scale
     win = _window(gen_start, gen_end)
     valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
-    n_chunks = -(-s_len // DECODE_CHUNK)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    scores = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
-    stats = torch.empty((n_chunks, b, h, 2), dtype=torch.float32, device=q.device)
-    partial = torch.empty((n_chunks, b, h, d), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
     rc = lib.pg_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         None if valid is None else valid.data_ptr(),
-        scores.data_ptr(), stats.data_ptr(), partial.data_ptr(),
-        b, s_len, h, hkv, d, DECODE_CHUNK,
+        b, s_len, h, hkv, d,
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),

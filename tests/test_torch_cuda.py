@@ -80,15 +80,28 @@ def test_flash_kernel_ignores_masked_kv_tiles(cuda, b, t, h, hkv, d, valid):
 @pytest.mark.parametrize("b,s,h,hkv,d,valid", [
     (1, 1100, 8, 1, 256, [700]),
     (2, 300, 4, 2, 72, [300, 33]),
+    (1, 1, 8, 1, 256, [1]),        # one position, a cluster of one block
+    (1, 17, 8, 1, 64, [17]),
+    (1, 308, 8, 1, 256, [292]),    # the main path's length
+    (1, 4128, 8, 1, 256, [4100]),  # the 896-px preset's length
+    (1, 4128, 8, 1, 256, [1]),     # one visible position
+    # One past each cluster size the host picks (1, 2, 4, 8, 16 blocks).
+    (1, 65, 8, 1, 256, [65]),
+    (1, 129, 8, 1, 256, [129]),
+    (1, 257, 8, 1, 256, [257]),
+    (1, 513, 8, 1, 256, [513]),
+    (1, 1100, 8, 1, 256, [40]),    # blocks with no visible position
+    (2, 500, 4, 2, 64, [5, 300]),  # with the window below
 ])
 def test_decode_kernel_matches_plain(cuda, b, s, h, hkv, d, valid):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q = _rand(gen, (b, 1, h, d), cuda)
     kc, vc = _rand(gen, (2, b, s, hkv, d), cuda)[1], _rand(gen, (2, b, s, hkv, d), cuda)[1]
     vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
-    out = ca.decode_attention(q, kc, vc, vl)
+    win = {"gen_start": 400, "gen_end": 420} if s == 500 else {}
+    out = ca.decode_attention(q, kc, vc, vl, **win)
     torch.cuda.synchronize()
-    torch.testing.assert_close(out, ca.decode_attention_plain(q, kc, vc, vl), rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(out, ca.decode_attention_plain(q, kc, vc, vl, **win), rtol=RTOL, atol=ATOL)
 
 
 def test_kernels_refuse_fp32(cuda):
@@ -116,6 +129,11 @@ def test_tiny_model_kernel_path_matches_plain_path(cuda):
 # ---------------------------------------------------------------------------
 
 
+# The q8/q4 GEMV's edges: each count of n8 tiles of x rows, O with a ragged
+# last 16-row tile, D with a ragged last chunk of K.
+GEMV_EDGES = [(m, o, d) for m in (1, 2, 3, 8, 9, 33, 64) for o in (200, 201, 2560) for d in (2048, 16416)]
+
+
 def _int8(gen, shape, dev, lo=-127, hi=128):
     return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
 
@@ -132,6 +150,7 @@ def _int8(gen, shape, dev, lo=-127, hi=128):
     (256, 4304, 1152),  # SigLIP fc1
     (97, 201, 64),      # odd O
     (276, 2048, 16400), # split K, D not a multiple of splits x 64
+    *GEMV_EDGES,
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_q8_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
@@ -242,6 +261,7 @@ def test_tiny_quantized_model_kernel_path_matches_plain_path(cuda, mode, lm_head
     (256, 4304, 1152),  # SigLIP fc1
     (97, 201, 64),      # odd O
     (276, 2048, 16416), # split K, D not a multiple of splits x 64
+    *GEMV_EDGES,
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_q4_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
@@ -257,7 +277,7 @@ def test_q4_matmul_kernel_matches_plain(cuda, m, o, d, out_dtype):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("s_len,valid", [(308, 292), (1100, 700), (4128, 4100)])
+@pytest.mark.parametrize("s_len,valid", [(308, 292), (1100, 700), (4128, 4100), (1100, 40)])
 def test_int8_kv_decode_is_the_dequantized_bf16_decode(cuda, s_len, valid):
     """The int8 read is bit for bit "dequantize the cache, then the bf16
     kernel", within the kernel bar of the plain version, and blind to a

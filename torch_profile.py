@@ -35,8 +35,6 @@ from pathlib import Path
 
 STEPS = 15  # decode tokens per profiled chunk
 TRIES = 3  # profiles of a call whose trace lost kernel records
-# Kernels that one launch of a port wrapper makes, where more than one.
-KERNELS_PER_LAUNCH = {"decode_attention": 3}  # scores, P V, reduce
 # Kernel-name substrings of each group, first match wins.
 GROUPS = [
     ("q4_matmul", ("Int4Rows",)),
@@ -87,8 +85,8 @@ def profiled(torch, fn, setup=lambda: None):
         seen = collections.Counter()
         for name, (_, n) in found.items():
             seen[group_of(name)] += n
-        missing = {g: n * KERNELS_PER_LAUNCH.get(g, 1) - seen[g] for g, n in launched.items()
-                   if seen[g] < n * KERNELS_PER_LAUNCH.get(g, 1)}
+        # Every wrapper launch is one kernel.
+        missing = {g: n - seen[g] for g, n in launched.items() if seen[g] < n}
         if not missing:
             break
         print(f"[records] try {tries}: the trace lacks {missing} kernel records", flush=True)
