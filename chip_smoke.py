@@ -20,15 +20,19 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    blocks with no visible position under a poisoned tail) and over an int8
    cache at S = 308, 1100 and 4128 with a poisoned tail, bit-identical to
    the bf16 kernel over the dequantized cache. The quant kernels
-   (q8_matmul, q4_matmul, w4a8_gemv, quant_rows and the mlp_w4a8 they make
-   up) at every decode shape of the 3B model, at 64 and 276 rows, at the
-   flat q4a8_matmul shapes, at ragged rows and widths, at the GEMV's edges
-   (M in 1, 2, 3, 8, 9, 33, 64 by O in 200, 201, 2560 by D in 2048, 16416,
-   bf16 and fp32 out), and at the GEMM's edges (65 rows, O not a multiple
-   of 128, strided rows, split K with D not a multiple of the split, fp32
-   out, 1044 rows);
-   the int8 x int8 projection (torch._int_mm) against its exact plain
-   version.
+   (q8_matmul, q4_matmul, w4a8_gemv, w4a8_geglu, quant_rows and the
+   mlp_w4a8 they make up) at every decode shape of the 3B model, at 64 and
+   276 rows, at the flat q4a8_matmul shapes, at ragged rows and widths, at
+   the q8/q4 GEMV's edges (M in 1, 2, 3, 8, 9, 33, 64 by O in 200, 201,
+   2560 by D in 2048, 16416, bf16 and fp32 out), at the GEMM's edges (65
+   rows, O not a multiple of 128, strided rows, split K with D not a
+   multiple of the split, fp32 out, 1044 rows), at the w4a8 GEMV's edges
+   (M in 1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64 by O in 520, 1000
+   by D in 64, 96, 2048, 16384, bf16 and fp32 out; bit-identical), with
+   its quantizing prologue at 1 to 8 strided rows (bit-identical), and
+   the MLP on both of its routes with a repeated call bit for bit the
+   first; the int8 x int8 projection (torch._int_mm) against its exact
+   plain version.
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
    weights made on the card, the byte-tokenizer processor, and three
    requests answered by ``generation.generate`` (32 new tokens each), with
@@ -132,6 +136,12 @@ FLASH_CASES = [
 GEMV_EDGE_ROWS = (1, 2, 3, 8, 9, 33, 64)
 GEMV_EDGE_OUT = (200, 201, 2560)
 GEMV_EDGE_DEPTH = (2048, 16416)
+# The w4a8 GEMV's edge cases (phase 3): each count of n8 tiles of x rows and
+# one row on either side, O with a ragged last 16-row tile, D of one to 64
+# ring steps.
+W4A8_EDGE_ROWS = (1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64)
+W4A8_EDGE_OUT = (520, 1000)
+W4A8_EDGE_DEPTH = (64, 96, 2048, 16384)
 
 
 def log(msg: str) -> None:
@@ -279,7 +289,8 @@ def phase_quant_kernels(torch):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    max_err = {"q8_matmul": 0.0, "q4_matmul": 0.0, "w4a8_gemv": 0.0, "quant_rows": 0.0, "mlp_w4a8": 0.0}
+    max_err = {"q8_matmul": 0.0, "q4_matmul": 0.0, "w4a8_gemv": 0.0, "w4a8_geglu": 0.0, "quant_rows": 0.0,
+               "mlp_w4a8": 0.0}
 
     def ints(shape, lo, hi):
         return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
@@ -430,36 +441,117 @@ def phase_quant_kernels(torch):
         check(ok, f"quant_rows {name}: kernel disagrees with its plain version")
         max_err["quant_rows"] = max(max_err["quant_rows"], steps)
 
+    # The w4a8 GEMV: exact integer sums and the plain version's fp32
+    # epilogue, so bit-identical in every case. The main-path shapes, then
+    # the tiling's edges: each count of n8 tiles of x rows and one row on
+    # either side, O with a ragged last 16-row tile, D of one to 64 ring
+    # steps (a ragged last one), more than 64 rows (row groups over the
+    # grid), bf16 and fp32 out.
+    def exact(kind, name, got, ref):
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        same = torch.equal(got, ref)
+        log(f"[kernel] {kind:16s} {name:44s} max_abs_err {err:.3e} | bit-identical {same}")
+        check(same, f"{kind} {name}: kernel is not bit-identical to its plain version")
+        max_err[kind] = max(max_err[kind], err)
+
+    def w4_weight(o, d, x_std):
+        return quant.pack_int4(ints((o, d), -7, 8)), scales(o, d, 4.3 * x_std)
+
     w4_cases = [
         # name, m, o, d, fp32 out
         ("decode gate_up M=1 O=32768 D=2048", 1, 32768, 2048, False),
         ("decode down M=1 O=2048 D=16384", 1, 2048, 16384, False),
         ("decode lm_head M=1 O=257152 D=2048 fp32", 1, 257152, 2048, True),
         ("GEMV M=64 O=32768 D=2048", 64, 32768, 2048, False),
-        ("GEMV M=13 O=2048 D=16384 (passes over D)", 13, 2048, 16384, False),
+        ("GEMV M=13 O=2048 D=16384 (split K)", 13, 2048, 16384, False),
         ("ragged M=7 O=1000 D=96", 7, 1000, 96, False),
-        ("M=100 O=520 D=64 (13 row blocks)", 100, 520, 64, False),
+        ("M=100 O=520 D=64 (two row groups)", 100, 520, 64, False),
     ]
     for name, m, o, d, f32 in w4_cases:
         xq, xs = ints((m, d), -127, 128), torch.rand(m, generator=gen, device=dev) * 0.02 + 1e-3
-        packed, s = quant.pack_int4(ints((o, d), -7, 8)), scales(o, d, 4.3 * 73.0 * 0.02)
+        packed, s = w4_weight(o, d, 73.0 * 0.02)
         out_dtype = torch.float32 if f32 else torch.bfloat16
-        held("w4a8_gemv", name, quant.w4a8_gemv(xq, xs, packed, s, out_dtype),
-             quant.w4a8_gemv_plain(xq, xs, packed, s, out_dtype))
-    # The flat TPU layout's kernel (q4a8_matmul) at its benchmark shapes: the
-    # port serves it with the one w4a8 layout.
-    for name, o in (("q4a8 flat qkv M=1 O=2560 D=2048", 2560), ("q4a8 flat gate_up M=1 O=32768 D=2048", 32768)):
-        x = _rand(torch, gen, (1, 1, 2048), dev)
-        packed, s = quant.pack_int4(ints((o, 2048), -7, 8)), scales(o, 2048, 4.3)
-        held("w4a8_gemv", name, quant.q4a8_matmul(x, packed, s), quant.q4a8_matmul_plain(x, packed, s))
+        exact("w4a8_gemv", name, quant.w4a8_gemv(xq, xs, packed, s, out_dtype),
+              quant.w4a8_gemv_plain(xq, xs, packed, s, out_dtype))
+    for m in W4A8_EDGE_ROWS:
+        worst, cases = 0.0, 0
+        for o in W4A8_EDGE_OUT:
+            for d in W4A8_EDGE_DEPTH:
+                xq, xs = ints((m, d), -127, 128), torch.rand(m, generator=gen, device=dev) * 0.02 + 1e-3
+                packed, s = quant.pack_int4(ints((o, d), -8, 8)), scales(o, d, 4.3 * 73.0 * 0.02)
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    got, ref = quant.w4a8_gemv(xq, xs, packed, s, out_dtype), quant.w4a8_gemv_plain(
+                        xq, xs, packed, s, out_dtype)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, ref), f"w4a8_gemv edge M={m} O={o} D={d} {out_dtype}: not bit-identical")
+                    worst = max(worst, float((got.float() - ref.float()).abs().max()))
+                    cases += 1
+        log(f"[kernel] w4a8_gemv edges M={m:<2d} O in {W4A8_EDGE_OUT} D in {W4A8_EDGE_DEPTH}, bf16 and fp32 "
+            f"out: {cases} cases bit-identical (max_abs_err {worst:.3e})")
 
+    # The quantizing prologue (q4a8_matmul up to W4A8_PROLOGUE_MAX_ROWS
+    # rows: one launch), bit-identical to quant_rows + the GEMV in plain:
+    # the lm_head and the flat TPU layout's benchmark shapes, the routed
+    # rows, strided rows and the first row count above them; then the
+    # prologue up to the 8 rows the kernel takes (the routing rule raised
+    # for these cases only).
+    max_rows = quant.W4A8_PROLOGUE_MAX_ROWS
+    q4a8_cases = [
+        ("lm_head M=1 O=257152 D=2048 fp32", 1, 257152, 2048, True, max_rows),
+        ("q4a8 flat qkv M=1 O=2560 D=2048", 1, 2560, 2048, False, max_rows),
+        ("q4a8 flat gate_up M=1 O=32768 D=2048", 1, 32768, 2048, False, max_rows),
+        (f"down M={max_rows} O=2048 D=16384", max_rows, 2048, 16384, False, max_rows),
+        (f"M={max_rows + 1} O=2048 D=2048 (quant_rows first)", max_rows + 1, 2048, 2048, False, max_rows),
+        *((f"prologue rows M={m} O=1000 D=96", m, 1000, 96, m % 2 == 0, 8) for m in range(2, 9)),
+        ("prologue rows M=8 O=2048 D=16384 (the largest)", 8, 2048, 16384, False, 8),
+    ]
+    for name, m, o, d, f32, routed in q4a8_cases:
+        wide = _rand(torch, gen, (m, d + 64), dev)  # rows with a stride
+        x = wide[:, 32:32 + d]
+        x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device=dev)  # exact ties at xs = 1
+        packed, s = w4_weight(o, d, 1.0)
+        out_dtype = torch.float32 if f32 else torch.bfloat16
+        quant.W4A8_PROLOGUE_MAX_ROWS = routed
+        try:
+            got = quant.q4a8_matmul(x, packed, s, out_dtype)
+        finally:
+            quant.W4A8_PROLOGUE_MAX_ROWS = max_rows
+        exact("w4a8_gemv", f"{name} strided", got, quant.q4a8_matmul_plain(x, packed, s, out_dtype))
+
+    # w4a8_geglu (the gate_up GEMV with the GeGLU epilogue): h within the
+    # kernel bar of the plain version, and h quantized as the down GEMV's
+    # prologue quantizes it gives the plain h's scales to the bit and its
+    # int8 values within one step (the fp32 tanh's ulp, as quant_rows').
+    for name, m, d, inter in (("decode gate_up M=1 D=2048 I=16384", 1, 2048, 16384),
+                              ("M=8 D=2048 I=16384 (the prologue's limit)", 8, 2048, 16384),
+                              ("ragged M=3 D=96 I=40", 3, 96, 40)):
+        x = _rand(torch, gen, (1, m, d), dev)
+        gu, gs = w4_weight(2 * inter, d, 1.0)
+        h, ref = quant.w4a8_geglu(x, gu, gs), quant.w4a8_geglu_plain(x, gu, gs)
+        (hq, hs), (pq, ps) = quant.quantize_rows_s8(h), quant.quantize_rows_s8(ref)
+        torch.cuda.synchronize()
+        err, ok = _close(torch, h, ref)
+        steps = int((hq.int() - pq.int()).abs().max())
+        log(f"[kernel] {'w4a8_geglu':16s} {name:44s} max_abs_err {err:.3e} | h quantized: scales identical "
+            f"{torch.equal(hs, ps)}, max step diff {steps}")
+        check(ok and torch.equal(hs, ps) and steps <= 1, f"w4a8_geglu {name}: kernel disagrees with its plain version")
+        max_err["w4a8_geglu"] = max(max_err["w4a8_geglu"], err)
+
+    # The whole MLP: two launches up to W4A8_PROLOGUE_MAX_ROWS rows, four
+    # above; a call leaves no state behind (the same input after another
+    # gives the same output, bit for bit).
     d, inter = 2048, 16384
     gu, gs = quant.pack_int4(ints((2 * inter, d), -7, 8)), scales(2 * inter, d, 4.3)
     dn, ds = quant.pack_int4(ints((d, inter), -7, 8)), scales(d, inter, 4.3 * 0.7)
-    for m in (1, 5, 64):
+    for m in sorted({1, 5, 13, 64, max_rows, max_rows + 1}):
         x = _rand(torch, gen, (1, m, d), dev)
-        held("mlp_w4a8", f"3B MLP M={m} D=2048 I=16384", quant.mlp_w4a8(x, gu, gs, dn, ds),
-             quant.mlp_w4a8_plain(x, gu, gs, dn, ds))
+        got = quant.mlp_w4a8(x, gu, gs, dn, ds)
+        held("mlp_w4a8", f"3B MLP M={m} D=2048 I=16384", got, quant.mlp_w4a8_plain(x, gu, gs, dn, ds))
+        quant.mlp_w4a8(_rand(torch, gen, (1, m, d), dev) * 4, gu, gs, dn, ds)
+        again = quant.mlp_w4a8(x, gu, gs, dn, ds)
+        torch.cuda.synchronize()
+        check(torch.equal(again, got), f"mlp_w4a8 M={m}: a repeated call gives another output")
     return max_err
 
 
@@ -508,7 +600,9 @@ def _time_rows(torch, kind, rows, library=None):
     token (or request)."""
     log(f"[time] {kind:16s} library call: {library or 'none'}")
     by_shape, tot = [], collections.Counter()
-    for label, weight, kfn, pfn, lfn, (nbytes, ops, op_kind) in rows:
+    # Rows none of which the main path runs are averaged with equal weights.
+    means = [row[1] for row in rows] if any(row[1] for row in rows) else [1] * len(rows)
+    for (label, weight, kfn, pfn, lfn, (nbytes, ops, op_kind)), mean_w in zip(rows, means):
         p1, k1, k2, p2 = (_time_ms(torch, f) for f in (pfn, kfn, kfn, pfn))
         km, pm = (k1 + k2) / 2, (p1 + p2) / 2
         lm = None if lfn is None else _time_ms(torch, lfn)
@@ -519,15 +613,15 @@ def _time_rows(torch, kind, rows, library=None):
             f"(turns: plain {p1:.4f}, kernel {k1:.4f}, kernel {k2:.4f}, plain {p2:.4f})")
         by_shape.append({"shape": label, "ms": km, "plain_ms": pm, "library_ms": lm, "bound_ms": bound,
                          "bound_by": bound_by, "calls_per_main_path_unit": weight})
-        if weight:
-            tot["n"] += weight
-            tot["ms"] += weight * km
-            tot["plain_ms"] += weight * pm
-            tot["bytes"] += weight * nbytes / HBM_BYTES_PER_S * 1e3
-            tot["ops"] += weight * ops / PEAK_OPS_PER_S[op_kind] * 1e3
-            tot["bound_ms"] += weight * bound
+        if mean_w:
+            tot["n"] += mean_w
+            tot["ms"] += mean_w * km
+            tot["plain_ms"] += mean_w * pm
+            tot["bytes"] += mean_w * nbytes / HBM_BYTES_PER_S * 1e3
+            tot["ops"] += mean_w * ops / PEAK_OPS_PER_S[op_kind] * 1e3
+            tot["bound_ms"] += mean_w * bound
             tot["lib_missing"] += lm is None
-            tot["library_ms"] += weight * (lm or 0.0)
+            tot["library_ms"] += mean_w * (lm or 0.0)
     n = tot["n"]
     return {
         "ms": tot["ms"] / n, "plain_ms": tot["plain_ms"] / n, "bound_ms": tot["bound_ms"] / n,
@@ -710,68 +804,73 @@ def phase_timing(torch, prompt_len):
     ], library="torch._weight_int4pack_mm (tinygemm; the same int4 values, the row scales in bf16)")
     del q4_row
 
-    # --- w4a8_gemv ---
-    def w4_row(label, weight, m, o, d, f32=False):
+    # --- w4a8_gemv, w4a8_geglu, and the mlp_w4a8 and quant_rows around them ---
+    def w4_weights(o, d):
+        return _copies(lambda: (
+            quant.pack_int4(torch.randint(-7, 8, (o, d), generator=gen, device=dev,
+                                          dtype=torch.int32).to(torch.int8)),
+            torch.rand(o, generator=gen, device=dev) / (4.3 * math.sqrt(d))), o * d // 2)
+
+    def int_mm(m, o, d, n):
+        """The library yardstick: torch._int_mm (int8 x int8 -> int32, no
+        quantization, no epilogue) on the weights unpacked to int8 (twice
+        the packed bytes), with x padded to 17 rows where it has fewer (the
+        call takes more than 16)."""
+        xq = torch.randint(-127, 128, (max(m, 17), d), generator=gen, device=dev, dtype=torch.int32).to(torch.int8)
+        unpacked = _copies(lambda: torch.randint(-7, 8, (o, d), generator=gen, device=dev,
+                                                 dtype=torch.int32).to(torch.int8), o * d)
+        k = len(unpacked)
+        return lambda i: torch._int_mm(xq, unpacked[i % k].t())
+
+    def w4_row(label, weight, m, o, d, f32=False, prologue=False):
+        """The GEMV on int8 rows (``w4a8_gemv``), or with the quantizing
+        prologue on bf16 rows (``q4a8_matmul`` of up to
+        W4A8_PROLOGUE_MAX_ROWS rows: the lm_head and the MLP's down)."""
         out_dtype = torch.float32 if f32 else torch.bfloat16
-        xq, xs = quant.quant_rows(_rand(torch, gen, (m, d), dev))
-        ws = _copies(lambda: (
-            quant.pack_int4(torch.randint(-7, 8, (o, d), generator=gen, device=dev,
-                                          dtype=torch.int32).to(torch.int8)),
-            torch.rand(o, generator=gen, device=dev) / (4.3 * math.sqrt(d))), o * d // 2)
+        x = _rand(torch, gen, (m, d), dev)
+        xq, xs = quant.quant_rows(x)
+        ws = w4_weights(o, d)
         n = len(ws)
-        lfn = None
-        # torch._int_mm (int8 x int8 -> int32, no epilogue) on the weights
-        # unpacked to int8, where its shape rules allow (more than 16 rows,
-        # widths a multiple of 8).
-        if m > 16 and d % 8 == 0 and o % 8 == 0:
-            unpacked = [quant.unpack_int4(p) for p, _ in ws]
-            lfn = lambda i: torch._int_mm(xq, unpacked[i % n].t())  # noqa: E731
-        nbytes = m * d + 4 * m + o * d // 2 + 4 * o + (4 if f32 else 2) * m * o
-        return (label, weight,
-                lambda i: quant.w4a8_gemv(xq, xs, *ws[i % n], out_dtype),
-                lambda i: quant.w4a8_gemv_plain(xq, xs, *ws[i % n], out_dtype),
-                lfn, (nbytes, 2 * m * o * d, "int8"))
+        nbytes = (2 if prologue else 1) * m * d + 4 * m + o * d // 2 + 4 * o + (4 if f32 else 2) * m * o
+        if prologue:
+            kfn = lambda i: quant.q4a8_matmul(x, *ws[i % n], out_dtype)  # noqa: E731
+            pfn = lambda i: quant.q4a8_matmul_plain(x, *ws[i % n], out_dtype)  # noqa: E731
+        else:
+            kfn = lambda i: quant.w4a8_gemv(xq, xs, *ws[i % n], out_dtype)  # noqa: E731
+            pfn = lambda i: quant.w4a8_gemv_plain(xq, xs, *ws[i % n], out_dtype)  # noqa: E731
+        return (label, weight, kfn, pfn, int_mm(m, o, d, n) if o % 8 == 0 else None,
+                (nbytes, 2 * m * o * d, "int8"))
 
-    # Per decode token of the w4a8 + lm_head_w4 arm: 18 fused MLPs of two
-    # GEMVs each, and the 4-bit lm_head row.
-    def flat_row(label, o, d=2048):
-        """The flat TPU layout's kernel, q4a8_matmul (quant_rows + w4a8_gemv),
-        at its benchmark shapes."""
-        x = _rand(torch, gen, (1, d), dev)
-        ws = _copies(lambda: (
-            quant.pack_int4(torch.randint(-7, 8, (o, d), generator=gen, device=dev,
-                                          dtype=torch.int32).to(torch.int8)),
-            torch.rand(o, generator=gen, device=dev) / (4.3 * math.sqrt(d))), o * d // 2)
-        n = len(ws)
-        return (label, 0, lambda i: quant.q4a8_matmul(x, *ws[i % n]),
-                lambda i: quant.q4a8_matmul_plain(x, *ws[i % n]), None,
-                (2 * d + o * d // 2 + 4 * o + 2 * o, 2 * o * d, "int8"))
-
+    # Per decode token of the w4a8 + lm_head_w4 arm: 18 down GEMVs and the
+    # 4-bit lm_head row, both with the quantizing prologue; the GEMV on int8
+    # rows (w4a8_gemv itself) is off the batch-1 path, reported beside.
     result["w4a8_gemv"] = _time_rows(torch, "w4a8_gemv", [
-        w4_row("decode gate_up M=1 O=32768 D=2048", 18, 1, 32768, 2048),
-        w4_row("decode down M=1 O=2048 D=16384", 18, 1, 2048, 16384),
-        w4_row("decode lm_head M=1 O=257152 D=2048 fp32", 1, 1, 257152, 2048, f32=True),
-        w4_row("GEMV M=64 O=32768 D=2048", 0, 64, 32768, 2048),
-        flat_row("q4a8_matmul flat qkv M=1 O=2560 D=2048 (2 launches)", 2560),
-        flat_row("q4a8_matmul flat gate_up M=1 O=32768 D=2048 (2 launches)", 32768),
-    ], library="torch._int_mm on the weights unpacked to int8 (more than 16 rows only; int32 out)")
-    del w4_row, flat_row
+        w4_row("decode down M=1 O=2048 D=16384 (prologue)", 18, 1, 2048, 16384, prologue=True),
+        w4_row("decode lm_head M=1 O=257152 D=2048 fp32 (prologue)", 1, 1, 257152, 2048, f32=True,
+               prologue=True),
+        w4_row("q4a8_matmul flat qkv M=1 O=2560 D=2048 (prologue)", 0, 1, 2560, 2048, prologue=True),
+        w4_row("q4a8_matmul flat gate_up M=1 O=32768 D=2048 (prologue)", 0, 1, 32768, 2048, prologue=True),
+        w4_row("int8 rows gate_up M=1 O=32768 D=2048", 0, 1, 32768, 2048),
+        w4_row("int8 rows down M=1 O=2048 D=16384", 0, 1, 2048, 16384),
+        w4_row("int8 rows lm_head M=1 O=257152 D=2048 fp32", 0, 1, 257152, 2048, f32=True),
+        *(w4_row(f"int8 rows GEMV M={m} O=32768 D=2048", 0, m, 32768, 2048) for m in (8, 16, 32, 64)),
+    ], library="torch._int_mm on the weights unpacked to int8 (int32 out, no quantization or epilogue; "
+               "x padded to 17 rows below 17)")
+    del w4_row
 
-    # --- quant_rows, and the whole mlp_w4a8 it is part of ---
-    def rows_row(label, weight, m, width, geglu):
-        x = _rand(torch, gen, (m, width), dev)
-        d = width // 2 if geglu else width
-        return (label, weight, lambda i: quant.quant_rows(x, geglu),
-                lambda i: quant.quant_rows_plain(x, geglu), None,
-                (2 * m * width + m * d + 4 * m, (12 if geglu else 3) * m * d, "fp32"))
-
-    result["quant_rows"] = _time_rows(torch, "quant_rows", [
-        rows_row("decode mlp input M=1 D=2048", 18, 1, 2048, False),
-        rows_row("decode GeGLU M=1 2I=32768", 18, 1, 32768, True),
-        rows_row("decode lm_head input M=1 D=2048", 1, 1, 2048, False),
-    ])
     d, inter = 2048, 16384
-    x = _rand(torch, gen, (1, 1, d), dev)
+    gu_ws = w4_weights(2 * inter, d)
+    n_gu = len(gu_ws)
+    x1 = _rand(torch, gen, (1, 1, d), dev)
+    # Bytes: x, the packed [gate | up] weight and its scales, h.
+    result["w4a8_geglu"] = _time_rows(torch, "w4a8_geglu", [
+        ("decode gate_up + GeGLU M=1 D=2048 I=16384", 18,
+         lambda i: quant.w4a8_geglu(x1, *gu_ws[i % n_gu]), lambda i: quant.w4a8_geglu_plain(x1, *gu_ws[i % n_gu]),
+         int_mm(1, 2 * inter, d, n_gu), (2 * d + inter * d + 8 * inter + 2 * inter, 2 * 2 * inter * d, "int8")),
+    ], library="torch._int_mm on the [gate | up] weight unpacked to int8, x padded to 17 rows "
+               "(the product only)")
+    del gu_ws
+
     mlp_ws = _copies(lambda: (
         quant.pack_int4(torch.randint(-7, 8, (2 * inter, d), generator=gen, device=dev,
                                       dtype=torch.int32).to(torch.int8)),
@@ -780,13 +879,33 @@ def phase_timing(torch, prompt_len):
                                       dtype=torch.int32).to(torch.int8)),
         torch.rand(d, generator=gen, device=dev) / (3 * math.sqrt(inter))), 3 * d * inter // 2)
     n = len(mlp_ws)
-    # Bytes: x, both packed weights and their scales, the output; the
-    # (M, 2I) scratch between the launches is the kernels' own traffic.
-    nbytes = 2 * d + 3 * d * inter // 2 + 4 * (2 * inter + d) + 2 * d
-    result["quant_rows"]["mlp_w4a8"] = _time_rows(torch, "mlp_w4a8", [
-        ("decode MLP M=1 D=2048 I=16384 (4 launches)", 18,
-         lambda i: quant.mlp_w4a8(x, *mlp_ws[i % n]), lambda i: quant.mlp_w4a8_plain(x, *mlp_ws[i % n]),
-         None, (nbytes, 2 * 3 * d * inter, "int8")),
+
+    def mlp_row(label, weight, m):
+        x = _rand(torch, gen, (1, m, d), dev)
+        # Bytes: x, both packed weights and their scales, the output; the
+        # scratch between the launches is the kernels' own traffic.
+        nbytes = 2 * m * d + 3 * d * inter // 2 + 4 * (2 * inter + d) + 2 * m * d
+        return (label, weight, lambda i: quant.mlp_w4a8(x, *mlp_ws[i % n]),
+                lambda i: quant.mlp_w4a8_plain(x, *mlp_ws[i % n]), None, (nbytes, 2 * 3 * m * d * inter, "int8"))
+
+    result["w4a8_geglu"]["mlp_w4a8"] = _time_rows(torch, "mlp_w4a8", [
+        mlp_row("decode MLP M=1 D=2048 I=16384 (2 launches)", 18, 1),
+        mlp_row("MLP M=64 D=2048 I=16384 (4 launches)", 0, 64),
+    ])
+    del mlp_ws
+
+    def rows_row(label, m, width, geglu):
+        x = _rand(torch, gen, (m, width), dev)
+        d = width // 2 if geglu else width
+        return (label, 0, lambda i: quant.quant_rows(x, geglu),
+                lambda i: quant.quant_rows_plain(x, geglu), None,
+                (2 * m * width + m * d + 4 * m, (12 if geglu else 3) * m * d, "fp32"))
+
+    # quant_rows runs above W4A8_PROLOGUE_MAX_ROWS rows only: off the batch-1 path.
+    result["w4a8_geglu"]["quant_rows"] = _time_rows(torch, "quant_rows", [
+        rows_row("mlp input M=1 D=2048", 1, 2048, False),
+        rows_row("GeGLU M=1 2I=32768", 1, 32768, True),
+        rows_row("GeGLU M=64 2I=32768", 64, 32768, True),
     ])
     return result
 
@@ -795,12 +914,13 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec):
     """The launches the code implies for one request (and the a8_matmul
     calls): per forward of R rows, in every layer, int4: qkv, o, gate_up and
     down through q4; else qkv and o through q8, or through a8_matmul with
-    prefill_a8 and R >= A8_MIN_SEQ; the MLP through mlp_w4a8 (two quant_rows
-    and two w4a8_gemv launches) when w4a8 and R <= the fused row limit, else
+    prefill_a8 and R >= A8_MIN_SEQ; the MLP through mlp_w4a8 when w4a8 and
+    R <= the fused row limit (w4a8_geglu and a w4a8_gemv launch up to the
+    prologue's rows, else two quant_rows and two w4a8_gemv launches), else
     two more such int8 projections; one lm_head row per forward, 4-bit (one
-    quant_rows and one w4a8_gemv launch) with lm_head_w4, else q8 on the
-    int8 embedding. The int8 cache changes no count."""
-    from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS
+    w4a8_gemv launch with the quantizing prologue) with lm_head_w4, else q8
+    on the int8 embedding. The int8 cache changes no count."""
+    from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, W4A8_PROLOGUE_MAX_ROWS
     from paligemma_tpu_torch.quantization import A8_MIN_SEQ
 
     mode, lm_head_w4 = qargs["mode"], qargs.get("lm_head_w4", False)
@@ -813,12 +933,15 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec):
             want["q4_matmul"] += 4 * n_layers
         elif mode == "w4a8" and rows <= MLP_FUSED_MAX_ROWS:
             want[int8_proj] += 2 * n_layers
-            want["quant_rows"] += 2 * n_layers
-            want["w4a8_gemv"] += 2 * n_layers
+            if rows <= W4A8_PROLOGUE_MAX_ROWS:
+                want["w4a8_geglu"] += n_layers
+                want["w4a8_gemv"] += n_layers
+            else:
+                want["quant_rows"] += 2 * n_layers
+                want["w4a8_gemv"] += 2 * n_layers
         else:
             want[int8_proj] += 4 * n_layers
         if lm_head_w4:
-            want["quant_rows"] += 1
             want["w4a8_gemv"] += 1
         else:
             want["q8_matmul"] += 1
@@ -971,7 +1094,7 @@ def phase_quant_arm(torch, model, proc, tok, cfg, arm, bf16_rec, main_counts):
     check(counts["q8_matmul"] > 0, f"{name}: q8_matmul never launched")
     check(isinstance(cache, gemma.QuantKVCache) == kv_int8, f"{name}: the wrong cache")
     if qargs["mode"] == "w4a8":
-        check(counts["w4a8_gemv"] > 0 and counts["quant_rows"] > 0,
+        check(counts["w4a8_gemv"] > 0 and counts["w4a8_geglu"] > 0,
               f"{name}: the w4a8 kernels never launched")
     if qargs["mode"] == "int4":
         check(counts["q4_matmul"] > 0, f"{name}: q4_matmul never launched")
@@ -1056,9 +1179,9 @@ KERNEL_TABLE = [
     ("q8_matmul", "paligemma_tpu_torch/csrc/quant_matmul.cu", "paligemma_tpu/ops/pallas_quant.py:185"),
     ("q4_matmul", "paligemma_tpu_torch/csrc/quant_matmul.cu", "paligemma_tpu/ops/pallas_quant.py:120"),
     ("w4a8_gemv", "paligemma_tpu_torch/csrc/w4a8.cu", "paligemma_tpu/ops/pallas_quant.py:497"),
-    # quant_rows with its GeGLU prologue is the middle of mlp_w4a8 (four
-    # launches: quant_rows, w4a8_gemv, quant_rows, w4a8_gemv).
-    ("quant_rows", "paligemma_tpu_torch/csrc/w4a8.cu", "paligemma_tpu/ops/pallas_quant.py:678"),
+    # mlp_w4a8 at batch 1 is two launches: w4a8_geglu (gate_up with the
+    # GeGLU epilogue), then w4a8_gemv with the quantizing prologue (down).
+    ("w4a8_geglu", "paligemma_tpu_torch/csrc/w4a8.cu", "paligemma_tpu/ops/pallas_quant.py:678"),
 ]
 
 
@@ -1093,6 +1216,7 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": main_counts[kname], "max_abs_err": max_err[kname], **times[kname]})
     kernels[-1]["mlp_w4a8"]["max_abs_err"] = max_err["mlp_w4a8"]
+    kernels[-1]["quant_rows"]["max_abs_err"] = max_err["quant_rows"]  # in quantization steps
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0

@@ -1,6 +1,6 @@
 // Shared helpers of the kernels: bf16 conversion, warp reductions, the
 // mma.sync m16n8k16 products (mma_16816, and mma_bf16 that the compiler may
-// reorder), cp.async copies, ldmatrix and shared loads and stores, the SM
+// reorder), the s8 product m16n8k32 (mma_s8), cp.async copies, ldmatrix and shared loads and stores, the SM
 // count (host), and the LengthMask visibility rule of the reference
 // (paligemma_tpu/ops/attention.py::LengthMask): batch row b sees kv
 // positions [0, valid[b]) and the shared window [win0, win1).
@@ -75,6 +75,20 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16x8 s32) += A (16x32 s8, row) * B (32x8 s8, col), exact. Fragments
+// as in the PTX ISA: with g = lane / 4 and t4 = lane % 4, a[0] / a[1] hold
+// A rows g / g + 8 at columns 4 t4 .. 4 t4 + 3 (one byte each, the lowest
+// byte first) and a[2] / a[3] the same rows at columns 16 + 4 t4 .. + 3;
+// b0 / b1 hold B column g at rows 4 t4 .. + 3 and 16 + 4 t4 .. + 3; c[0..3]
+// hold D rows g, g + 8 at columns 2 t4 (+1). Not volatile: the compiler may
+// schedule the products among the fragment loads.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "pg_q4_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int] + [_ptr] * 3,
     "pg_quant_rows": [_ptr] * 3 + [_int] * 2 + [_ll, _int, _ptr],
     "pg_w4a8_gemv": [_ptr] * 5 + [_int] * 4 + [_ptr],
+    "pg_q4a8_gemv": [_ptr, _ll] + [_ptr] * 3 + [_int] * 4 + [_ptr],
+    "pg_w4a8_geglu": [_ptr, _ll] + [_ptr] * 3 + [_int] * 3 + [_ptr],
 }
 
 

@@ -17,10 +17,10 @@ The weight layout is the port's own, ``nn.Linear``'s ``(out, in)``:
 - int4 (int4 weight-only and w4a8): ``packed`` (O, D/2) uint8, two signed
   nibbles of one output row per byte. Within each group of 8 input columns
   ``8i..8i+7``, byte ``4i + k`` holds column ``8i + k`` in its low nibble
-  and ``8i + 4 + k`` in its high nibble, so one 32-bit word of packed bytes
-  pairs with two 32-bit words of int8 activations in ``__dp4a``, and
-  ``(w << 4) & 0xF0F0F0F0`` / ``w & 0xF0F0F0F0`` are 16 times four columns
-  each, exact in int8 lanes.
+  and ``8i + 4 + k`` in its high nibble, so ``(w << 4) & 0xF0F0F0F0`` /
+  ``w & 0xF0F0F0F0`` of one 32-bit word of packed bytes are 16 times four
+  columns each, exact in int8 lanes: the s8 operands of the w4a8 kernels'
+  tensor-core products as they stand.
 
 Numerics, as in the reference:
 
@@ -37,13 +37,17 @@ Numerics, as in the reference:
   ``(float(acc) * xs) * s``. Every partial sum is an integer below 2^24 in
   magnitude (|acc| <= 127 * 7 * 16384 at the widest row), so the plain
   version's fp32 product is exact too.
-- ``mlp_w4a8``: quant -> gate_up GEMV (bf16 out) -> fp32 tanh-GELU of gate,
-  rounded to the activation dtype, times up -> quant -> down GEMV.
+- ``w4a8_geglu``: quant -> gate_up GEMV (bf16 out) -> fp32 tanh-GELU of
+  gate, rounded to the activation dtype, times up: h (M, I).
+- ``mlp_w4a8``: ``w4a8_geglu``, then quant -> down GEMV.
 
-Each kernel wrapper counts its launches in its ``launches`` attribute;
-``q4a8_matmul`` and ``mlp_w4a8`` launch through ``quant_rows`` and
-``w4a8_gemv`` and are counted there. ``a8_matmul`` launches no kernel of
-the port and counts its calls in ``calls``.
+Each kernel wrapper counts its launches in its ``launches`` attribute:
+``w4a8_gemv`` counts every launch of the w4a8 GEMV kernel, also those that
+``q4a8_matmul`` and ``mlp_w4a8`` make (with the quantizing prologue, or
+after a ``quant_rows`` launch, which ``quant_rows`` counts), and
+``w4a8_geglu`` those of the gate_up kernel with the GeGLU epilogue.
+``a8_matmul`` launches no kernel of the port and counts its calls in
+``calls``.
 """
 from __future__ import annotations
 
@@ -58,6 +62,19 @@ from paligemma_tpu_torch.ops import _build
 # Rows of one fused-MLP call; more rows take the int8 companions
 # (the reference's VMEM budget, kept as the routing rule).
 MLP_FUSED_MAX_ROWS = 64
+# Rows up to which the w4a8 kernels quantize their bf16 rows of x in their
+# own prologue (csrc/w4a8.cu takes at most 8): q4a8_matmul is then one
+# launch and mlp_w4a8 two. More rows take a quant_rows launch first, and
+# mlp_w4a8 four launches. Every block of a prologue GEMV quantizes all its
+# rows (the down GEMV: 16384 values a row in each of 128 blocks), ~5 us a
+# row for the MLP, while the quant_rows route costs ~8 us whatever the rows:
+# on the H100 the 3B MLP took 0.0251 / 0.0315 / 0.0366 ms at 1 / 2 / 3 rows
+# with the prologue and 0.0334 / 0.0338 / 0.0336 with quant_rows first, the
+# 4-bit lm_head 0.0921 / 0.0923 ms at 2 rows and 0.0998 / 0.0944 at 4
+# (scripts/w4a8_variants.py; PERF.md section 6).
+W4A8_PROLOGUE_MAX_ROWS = 2
+# The most rows the prologue kernels take (csrc/w4a8.cu's kQuantMaxRows).
+_PROLOGUE_KERNEL_MAX_ROWS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +325,8 @@ def w4a8_gemv(
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
     """xq (M, D) int8 with row scales xs (M,) @ packed int4 (O, D/2)^T with
-    row scales (O,) -> (M, O) in ``out_dtype`` (bf16 or fp32), one launch."""
+    row scales (O,) -> (M, O) in ``out_dtype`` (bf16 or fp32), one launch
+    (64 rows of x at a time stream the weight once)."""
     if xq.device.type == "cpu":
         return w4a8_gemv_plain(xq, xs, packed, scale, out_dtype)
     m, d = xq.shape
@@ -334,6 +352,16 @@ def w4a8_gemv(
 w4a8_gemv.launches = 0
 
 
+def _prologue_rows(name: str, x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> None:
+    """Checks of a w4a8 kernel that quantizes its bf16 rows x2 (M, D) in its
+    prologue, against ``packed`` (O, D/2)."""
+    m, d = x2.shape
+    if m > _PROLOGUE_KERNEL_MAX_ROWS:
+        raise ValueError(f"{name}: {m} rows; the prologue takes at most {_PROLOGUE_KERNEL_MAX_ROWS}")
+    _check_rows(name, x2, d_multiple=32)
+    _check_weight(name, x2, packed, scale, torch.uint8, (packed.shape[0], d // 2))
+
+
 def q4a8_matmul_plain(
     x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     out_dtype: Optional[torch.dtype] = None,
@@ -351,13 +379,65 @@ def q4a8_matmul(
 ) -> torch.Tensor:
     """x (..., D) -> per-row int8 -> @ packed int4 (O, D/2)^T -> (..., O) in
     ``out_dtype`` (default x.dtype). Port of ``q4a8_matmul_tiled`` (and of
-    ``q4a8_matmul``: the port has one w4a8 layout)."""
+    ``q4a8_matmul``: the port has one w4a8 layout). Up to
+    ``W4A8_PROLOGUE_MAX_ROWS`` rows one launch of the w4a8 GEMV, which
+    quantizes x in its prologue; more rows a ``quant_rows`` launch first."""
     if x.device.type == "cpu":
         return q4a8_matmul_plain(x, packed, scale, out_dtype)
     *lead, d = x.shape
-    xq, xs = quant_rows(x.reshape(-1, d))
-    y = w4a8_gemv(xq, xs, packed, scale, out_dtype or x.dtype)
-    return y.reshape(*lead, packed.shape[0])
+    x2 = x.reshape(-1, d)
+    out_dtype = _out_dtype("q4a8_matmul", out_dtype or x.dtype)
+    if x2.shape[0] > W4A8_PROLOGUE_MAX_ROWS:
+        xq, xs = quant_rows(x2)
+        return w4a8_gemv(xq, xs, packed, scale, out_dtype).reshape(*lead, packed.shape[0])
+    _prologue_rows("q4a8_matmul", x2, packed, scale)
+    m, o = x2.shape[0], packed.shape[0]
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    lib = _build.load_library()
+    rc = lib.pg_q4a8_gemv(
+        x2.data_ptr(), x2.stride(0), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        m, o, d, int(out_dtype == torch.float32), _stream(x),
+    )
+    _build.check(lib, "q4a8_matmul", rc)
+    w4a8_gemv.launches += 1
+    return out.reshape(*lead, o)
+
+
+def w4a8_geglu_plain(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``w4a8_geglu`` (any device)."""
+    *lead, d = x.shape
+    xq, xs = quant_rows_plain(x.reshape(-1, d))
+    h = geglu(w4a8_gemv_plain(xq, xs, gu_packed, gu_scale, x.dtype))
+    return h.reshape(*lead, gu_packed.shape[0] // 2)
+
+
+def w4a8_geglu(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor) -> torch.Tensor:
+    """The first half of ``mlp_w4a8``: x (..., D) bf16 -> per-row int8 -> @
+    the fused [gate | up] packed int4 (2I, D/2)^T with its row scales (2I,)
+    -> fp32 tanh-GELU of gate, rounded to bf16, times up -> h (..., I) bf16,
+    one launch (the GeGLU in the GEMV's epilogue). Takes at most 8 rows (the
+    kernel quantizes x in its prologue); ``mlp_w4a8`` calls it up to
+    ``W4A8_PROLOGUE_MAX_ROWS`` rows."""
+    if x.device.type == "cpu":
+        return w4a8_geglu_plain(x, gu_packed, gu_scale)
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d)
+    if gu_packed.shape[0] % 2:
+        raise ValueError("w4a8_geglu: the fused [gate | up] weight needs an even row count")
+    _prologue_rows("w4a8_geglu", x2, gu_packed, gu_scale)
+    m, inter = x2.shape[0], gu_packed.shape[0] // 2
+    h = torch.empty((m, inter), dtype=torch.bfloat16, device=x.device)
+    lib = _build.load_library()
+    rc = lib.pg_w4a8_geglu(
+        x2.data_ptr(), x2.stride(0), gu_packed.data_ptr(), gu_scale.data_ptr(), h.data_ptr(),
+        m, inter, d, _stream(x),
+    )
+    _build.check(lib, "w4a8_geglu", rc)
+    w4a8_geglu.launches += 1
+    return h.reshape(*lead, inter)
+
+
+w4a8_geglu.launches = 0
 
 
 def mlp_w4a8_plain(
@@ -365,12 +445,7 @@ def mlp_w4a8_plain(
     dn_packed: torch.Tensor, dn_scale: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version of ``mlp_w4a8`` (any device)."""
-    *lead, d = x.shape
-    xq, xs = quant_rows_plain(x.reshape(-1, d))
-    gu = w4a8_gemv_plain(xq, xs, gu_packed, gu_scale, x.dtype)
-    hq, hs = quant_rows_plain(gu, geglu_prologue=True)
-    y = w4a8_gemv_plain(hq, hs, dn_packed, dn_scale, x.dtype)
-    return y.reshape(*lead, dn_packed.shape[0])
+    return q4a8_matmul_plain(w4a8_geglu_plain(x, gu_packed, gu_scale), dn_packed, dn_scale)
 
 
 def mlp_w4a8(
@@ -378,17 +453,24 @@ def mlp_w4a8(
     dn_packed: torch.Tensor, dn_scale: torch.Tensor,
 ) -> torch.Tensor:
     """GeGLU MLP ``down(gelu_tanh(gate(x)) * up(x))`` with both weights in
-    w4a8: four launches on one stream (quant_rows, gate_up GEMV into a
-    (M, 2I) scratch, quant_rows with the GeGLU prologue, down GEMV). Port of
-    ``mlp_w4a8`` and ``mlp_w4a8_stacked`` (a layer of a stacked tensor is a
-    view here, so one function serves both)."""
+    w4a8. Port of ``mlp_w4a8`` and ``mlp_w4a8_stacked`` (a layer of a
+    stacked tensor is a view here, so one function serves both). Up to
+    ``W4A8_PROLOGUE_MAX_ROWS`` rows two launches on one stream:
+    ``w4a8_geglu`` into an (M, I) bf16 scratch, then the down GEMV, which
+    quantizes it in its prologue. More rows four: quant_rows, the gate_up
+    GEMV into an (M, 2I) scratch, quant_rows with the GeGLU prologue, the
+    down GEMV."""
     if x.device.type == "cpu":
         return mlp_w4a8_plain(x, gu_packed, gu_scale, dn_packed, dn_scale)
     *lead, d = x.shape
-    xq, xs = quant_rows(x.reshape(-1, d))
-    gu = w4a8_gemv(xq, xs, gu_packed, gu_scale, x.dtype)
-    hq, hs = quant_rows(gu, geglu_prologue=True)
-    y = w4a8_gemv(hq, hs, dn_packed, dn_scale, x.dtype)
+    x2 = x.reshape(-1, d)
+    if x2.shape[0] <= W4A8_PROLOGUE_MAX_ROWS:
+        y = q4a8_matmul(w4a8_geglu(x2, gu_packed, gu_scale), dn_packed, dn_scale)
+    else:
+        xq, xs = quant_rows(x2)
+        gu = w4a8_gemv(xq, xs, gu_packed, gu_scale, x.dtype)
+        hq, hs = quant_rows(gu, geglu_prologue=True)
+        y = w4a8_gemv(hq, hs, dn_packed, dn_scale, x.dtype)
     return y.reshape(*lead, dn_packed.shape[0])
 
 
@@ -441,12 +523,13 @@ def launch_counts() -> dict:
         "q8_matmul": q8_matmul.launches,
         "q4_matmul": q4_matmul.launches,
         "w4a8_gemv": w4a8_gemv.launches,
+        "w4a8_geglu": w4a8_geglu.launches,
         "quant_rows": quant_rows.launches,
     }
 
 
 def reset_launch_counts() -> None:
     """Zero every launch count, and ``a8_matmul``'s call count."""
-    for fn in (q8_matmul, q4_matmul, w4a8_gemv, quant_rows):
+    for fn in (q8_matmul, q4_matmul, w4a8_gemv, w4a8_geglu, quant_rows):
         fn.launches = 0
     a8_matmul.calls = 0

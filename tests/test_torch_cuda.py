@@ -180,15 +180,24 @@ def test_quant_rows_kernel_is_bit_identical_to_plain(cuda, m, d, geglu):
     assert int((xq.int() - pq.int()).abs().max()) <= (1 if geglu else 0)
 
 
+# The w4a8 GEMV's edges: each count of n8 tiles of x rows and one row on
+# either side of it, O with a ragged last 16-row tile, D of one to 64 ring
+# steps (and a ragged last one).
+W4A8_EDGES = [(m, o, d) for m in (1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64)
+              for o in (520, 1000) for d in (64, 96, 2048, 16384)]
+
+
 @pytest.mark.parametrize("m,o,d", [
-    (1, 32768, 2048), (1, 2048, 16384), (7, 1000, 96), (100, 520, 64),
-    (13, 2048, 16384),  # passes over D, rows 8 at a time
+    (1, 32768, 2048), (1, 2048, 16384), (7, 1000, 96),
+    (100, 520, 64),     # two groups of 64 rows over the grid
+    (13, 2048, 16384),  # two n8 tiles of x rows, K split over the warps
+    *W4A8_EDGES,
 ])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_w4a8_gemv_kernel_matches_plain(cuda, m, o, d, out_dtype):
     gen = torch.Generator(device=cuda).manual_seed(4)
     xq, xs = _int8(gen, (m, d), cuda), torch.rand(m, generator=gen, device=cuda) + 0.01
-    packed = quant.pack_int4(_int8(gen, (o, d), cuda, -7, 8))
+    packed = quant.pack_int4(_int8(gen, (o, d), cuda, -8, 8))
     s = torch.rand(o, generator=gen, device=cuda) * 0.01 + 1e-3
     out = quant.w4a8_gemv(xq, xs, packed, s, out_dtype)
     torch.cuda.synchronize()
@@ -196,7 +205,54 @@ def test_w4a8_gemv_kernel_matches_plain(cuda, m, o, d, out_dtype):
     assert torch.equal(out, quant.w4a8_gemv_plain(xq, xs, packed, s, out_dtype))
 
 
-@pytest.mark.parametrize("m", [1, 5, 64])
+@pytest.mark.parametrize("m,o,d", [
+    (1, 257152, 2048),  # the 4-bit lm_head
+    (1, 2560, 2048), (2, 2048, 16384), (3, 1000, 96), (5, 520, 64), (8, 2048, 16384),
+])
+@pytest.mark.parametrize("max_rows", [None, 8])  # the routing rule, and the prologue's limit
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_q4a8_matmul_quantizing_prologue_is_bit_identical(cuda, monkeypatch, m, o, d, max_rows, out_dtype):
+    if max_rows is not None:
+        monkeypatch.setattr(quant, "W4A8_PROLOGUE_MAX_ROWS", max_rows)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    wide = _rand(gen, (m, d + 64), cuda)  # rows with a stride
+    x = wide[:, 32:32 + d]
+    x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5], device=cuda)  # exact ties at xs = 1
+    packed = quant.pack_int4(_int8(gen, (o, d), cuda, -7, 8))
+    s = torch.rand(o, generator=gen, device=cuda) * 0.01 + 1e-3
+    before = quant.launch_counts()
+    out = quant.q4a8_matmul(x, packed, s, out_dtype)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in quant.launch_counts().items()}
+    fused = m <= quant.W4A8_PROLOGUE_MAX_ROWS
+    assert launched["w4a8_gemv"] == 1 and launched["quant_rows"] == (0 if fused else 1)
+    # The prologue's scales and int8 values are quant_rows' (the same
+    # arithmetic), and the sums exact: bit-identical.
+    assert torch.equal(out, quant.q4a8_matmul_plain(x, packed, s, out_dtype))
+
+
+@pytest.mark.parametrize("m,d,inter", [(1, 2048, 16384), (3, 96, 520), (8, 2048, 16384), (2, 64, 40)])
+def test_w4a8_geglu_kernel_matches_plain(cuda, m, d, inter):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = _rand(gen, (1, m, d), cuda)
+    gu = quant.pack_int4(_int8(gen, (2 * inter, d), cuda, -7, 8))
+    gs = (torch.rand(2 * inter, generator=gen, device=cuda) + 0.5) / (4.3 * 73 * d**0.5)
+    before = quant.w4a8_geglu.launches
+    h = quant.w4a8_geglu(x, gu, gs)
+    torch.cuda.synchronize()
+    assert quant.w4a8_geglu.launches == before + 1 and h.shape == (1, m, inter)
+    ref = quant.w4a8_geglu_plain(x, gu, gs)
+    # The gate and up sums are exact and rounded as the plain version's; the
+    # fp32 tanh may differ from PyTorch's by an ulp, which can move an h by
+    # one bf16 ulp and its int8 value by one step, never the row scale.
+    hq, hs = quant.quantize_rows_s8(h)
+    pq, ps = quant.quantize_rows_s8(ref)
+    assert torch.equal(hs, ps)
+    assert int((hq.int() - pq.int()).abs().max()) <= 1
+    torch.testing.assert_close(h, ref, rtol=2.0**-7, atol=0.0)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 13, 64])
 def test_mlp_w4a8_kernels_match_plain(cuda, m):
     gen = torch.Generator(device=cuda).manual_seed(5)
     d, inter = 2048, 16384
@@ -208,10 +264,19 @@ def test_mlp_w4a8_kernels_match_plain(cuda, m):
     before = quant.launch_counts()
     out = quant.mlp_w4a8(x, gu, gs, dn, ds)
     torch.cuda.synchronize()
-    after = quant.launch_counts()
-    assert after["quant_rows"] - before["quant_rows"] == 2
-    assert after["w4a8_gemv"] - before["w4a8_gemv"] == 2
+    launched = {k: v - before[k] for k, v in quant.launch_counts().items()}
+    if m <= quant.W4A8_PROLOGUE_MAX_ROWS:
+        # w4a8_geglu, then the down GEMV with the quantizing prologue.
+        assert (launched["w4a8_geglu"], launched["w4a8_gemv"], launched["quant_rows"]) == (1, 1, 0)
+    else:
+        assert (launched["w4a8_geglu"], launched["w4a8_gemv"], launched["quant_rows"]) == (0, 2, 2)
     torch.testing.assert_close(out, quant.mlp_w4a8_plain(x, gu, gs, dn, ds), rtol=RTOL, atol=ATOL)
+    # No state outlives a call: another input in between, then the first
+    # input again gives the first output bit for bit.
+    quant.mlp_w4a8(_rand(gen, (1, m, d), cuda) * 4, gu, gs, dn, ds)
+    again = quant.mlp_w4a8(x, gu, gs, dn, ds)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
 
 
 @pytest.mark.parametrize("mode,lm_head_w4", [("int8", False), ("w4a8", False), ("w4a8", True), ("int4", False)])
@@ -232,10 +297,17 @@ def test_tiny_quantized_model_kernel_path_matches_plain_path(cuda, mode, lm_head
     assert got[0] == want[0]
     assert launched["q8_matmul"] > 0
     if mode == "w4a8":
-        # Six forwards of at most 64 rows: two quant_rows and two w4a8_gemv
-        # launches per fused MLP, and one of each per 4-bit lm_head row.
-        want_w4 = 2 * cfg.text_config.num_hidden_layers * 6 + (6 if lm_head_w4 else 0)
-        assert launched["quant_rows"] == launched["w4a8_gemv"] == want_w4
+        # Six forwards of at most 64 rows. The prefill's MLPs (23 rows, above
+        # the prologue's rows): two quant_rows and two w4a8_gemv launches
+        # each. Each of the five decode steps' MLPs: w4a8_geglu and one
+        # w4a8_gemv launch. The 4-bit lm_head row of each forward (its last
+        # position): one w4a8_gemv launch.
+        layers = cfg.text_config.num_hidden_layers
+        assert ids.shape[1] > quant.W4A8_PROLOGUE_MAX_ROWS
+        lm = 6 if lm_head_w4 else 0
+        assert launched["quant_rows"] == 2 * layers
+        assert launched["w4a8_gemv"] == 2 * layers + 5 * layers + lm
+        assert launched["w4a8_geglu"] == 5 * layers
     if mode == "int4":
         # Six forwards, four int4 projections per layer in each.
         assert launched["q4_matmul"] == 4 * cfg.text_config.num_hidden_layers * 6

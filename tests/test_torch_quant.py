@@ -212,6 +212,42 @@ def test_mlp_w4a8_plain_close_to_jax_fused_kernels(m):
         np.testing.assert_allclose(got, _np(ref), rtol=0.05, atol=0.05)
 
 
+@pytest.mark.parametrize("m", [1, 2, 5])
+def test_w4a8_geglu_plain_matches_jax_gate_and_quantize(m):
+    """``w4a8_geglu_plain`` (the plain version of the gate_up kernel with the
+    GeGLU epilogue), quantized as the down GEMV's prologue quantizes it,
+    against the JAX kernel's gate_up product (interpret mode) followed by
+    the ``_gate_and_quantize`` arithmetic of ``pallas_quant.py:631-638``."""
+    d, inter, (qg, sg, _, _), (gu_p, gu_s, _, _), x = _mlp_case(m, seed=8)
+    gu = jpq.q4a8_matmul_tiled(x, jpq.pack_int4_mxu_tiled(jnp.asarray(qg), block_o=256, block_d=128),
+                               jnp.asarray(sg))[0]
+
+    def gate_and_quantize(gu):
+        gate, up = gu[:, :inter], gu[:, inter:]
+        act = jax.nn.gelu(gate.astype(jnp.float32), approximate=True)
+        h = (act.astype(gu.dtype) * up).astype(jnp.float32)
+        hs = jnp.maximum(jnp.max(jnp.abs(h), axis=-1, keepdims=True), 1e-8) / 127.0
+        return jnp.round(h / hs).astype(jnp.int8), hs[:, 0]
+
+    h = quant.w4a8_geglu_plain(_t(x), gu_p, gu_s)
+    assert h.dtype == torch.bfloat16 and tuple(h.shape) == (1, m, inter)
+    hq, hs = quant.quantize_rows_s8(h[0])
+    # Op by op, JAX divides as the port does (IEEE): the same scales to the
+    # bit. The fp32 tanh-GELU is another library's, which can move an h by
+    # one bf16 ulp and its int8 value by one step.
+    jq, js = gate_and_quantize(gu)
+    np.testing.assert_array_equal(hs.numpy(), np.asarray(js))
+    assert np.abs(hq.numpy().astype(np.int32) - np.asarray(jq, np.int32)).max() <= 1
+    # Jitted, XLA on the CPU keeps the gated activation in fp32 (it skips
+    # its bf16 rounding, as the interpreter does in the fused kernels' test
+    # above) and turns the division by 127 into a product with its fp32
+    # reciprocal (ROADMAP Queue 3): each h moves by at most a bf16 ulp, so
+    # the scales agree within one bf16 ulp and the values within one step.
+    jq, js = jax.jit(gate_and_quantize)(gu)
+    np.testing.assert_allclose(hs.numpy(), np.asarray(js), rtol=2.0**-8, atol=0)
+    assert np.abs(hq.numpy().astype(np.int32) - np.asarray(jq, np.int32)).max() <= 1
+
+
 def test_cpu_wrappers_take_the_plain_versions_and_count_no_launch():
     d, inter, _, tw, x = _mlp_case(3)
     xt = _t(x)

@@ -40,6 +40,7 @@ GROUPS = [
     ("q4_matmul", ("Int4Rows",)),
     ("q8_matmul", ("Int8Rows",)),
     ("w4a8_gemv", ("w4a8_gemv_kernel",)),
+    ("w4a8_geglu", ("w4a8_geglu_kernel",)),
     ("quant_rows", ("quant_rows_kernel",)),
     ("flash_attention", ("flash_attention_kernel",)),
     ("decode_attention", ("decode_",)),
