@@ -35,10 +35,12 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    plain version.
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
    weights made on the card, the byte-tokenizer processor, and three
-   requests answered by ``generation.generate`` (32 new tokens each), with
-   the kernels' launch counts, prefill ms and decode ms/token per request;
-   then the first request's decode again as one ``decode_steps`` chunk,
-   which must give the same tokens; and the peak device memory. Then the
+   requests answered by ``generation.generate`` (32 new tokens each; one
+   replay of the captured decode step a token, after one untimed request of
+   each shape), with the kernels' launch counts, prefill ms and decode
+   ms/token per request; then the first request's decode again as one
+   ``decode_steps`` chunk, which must give the same tokens; and the peak
+   device memory. Then the
    model is quantized on the card in each serving arm (``QUANT_ARMS``: int8,
    w4a8, w4a8 with the 4-bit lm_head, int4, int8 with the int8 KV cache,
    int8 with the int8 x int8 prefill) and the first request is answered
@@ -56,6 +58,24 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    type) and the time of one PyTorch call that computes the same function,
    where there is one (never called by the port); flash also at the 448-
    and 896-px presets' lengths.
+7. Decode as a CUDA graph (run after phase 5, before the timing), with the
+   final norm's scale redrawn so that greedy streams change token
+   (``phase_graph``): in bf16 and in each quantized arm, request 0:
+   ``generate``'s launch counts held to the code's; ``decode_steps`` (31
+   replays of the captured step) and the eager step (issued launch by
+   launch) must give ``generate``'s 31 decode tokens, with the graph
+   chunk's launches the code's, greedy, and sampled under one seed (graph
+   chunk against eager chunk); the capture ms, and the host and
+   device-event ms/token of both chunks (best of two); one graph chunk
+   under torch.profiler, whose CUPTI kernel records of each port kernel
+   must equal the launches its replays added; ``generate_chunked`` (chunk
+   8) and ``generate_scan`` must give ``generate``'s tokens, greedy and
+   sampled, with no EOS and with an EOS inside the stream (trimmed, and
+   frozen in the scan). Then sampled decode through the graph
+   (bf16, temperature 0.8, top_p 0.9): one seed repeats its stream (also
+   through ``generate_chunked``), another seed differs, every id is in the
+   vocab, and temperature 0 is greedy; and the phase's peak memory
+   (``utils.memory.peak_memory_mb``).
 
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -63,6 +83,7 @@ The second-to-last line is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import subprocess
@@ -87,6 +108,9 @@ KERNEL_RTOL, KERNEL_ATOL = 2.0**-7, 2e-3
 # 2% of the largest logit magnitude (a bf16 value carries 2^-8 = 0.4%).
 LOGIT_REL_TOL = 0.02
 DECODE_CHECK_STEPS = 3  # decode steps held to the plain path after the prefill
+# Phase 7: generate_chunked's chunk, and the sampled decode's settings.
+GRAPH_CHUNK = 8
+SAMPLE_TEMPERATURE, SAMPLE_TOP_P = 0.8, 0.9
 # The quantized serving arms: (name, quantize_params arguments, int8 KV cache).
 QUANT_ARMS = [
     ("int8", {"mode": "int8"}, False),
@@ -104,6 +128,21 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # copies of them to stream this many bytes, as a decode step streams every
 # layer's weights in turn.
 L2_FLUSH_BYTES = 100e6
+
+# Substrings of the CUDA kernel names of each counted wrapper's kernels in
+# a CUPTI trace, first match wins (phase 7; torch_profile.py's groups).
+KERNEL_SYMBOLS = [
+    ("q4_matmul", ("Int4Rows",)),
+    ("q8_matmul", ("Int8Rows",)),
+    ("w4a8_gemv", ("w4a8_gemv_kernel",)),
+    ("w4a8_geglu", ("w4a8_geglu_kernel",)),
+    ("quant_rows", ("quant_rows_kernel",)),
+    ("flash_attention", ("flash_attention_kernel",)),
+    ("decode_attention", ("decode_",)),
+]
+TRACE_TRIES = 3  # traces of a chunk whose records fall short of its launches
+# Phase 7's final-norm scale (1 + w) is redrawn from this seed; see phase_graph.
+GREEDY_NORM_SEED = SEED + 3
 
 # flash_attention against its plain version (phase 3): name, (b, t, h, hkv, d),
 # keyword arguments, and the kv position from which K and V are poisoned.
@@ -912,7 +951,8 @@ def phase_timing(torch, prompt_len):
 
 def _expected_launches(cfg, qargs, prompt_len, n_dec):
     """The launches the code implies for one request (and the a8_matmul
-    calls): per forward of R rows, in every layer, int4: qkv, o, gate_up and
+    calls): the attention kernels only for the bf16 model (``qargs`` None);
+    else per forward of R rows, in every layer, int4: qkv, o, gate_up and
     down through q4; else qkv and o through q8, or through a8_matmul with
     prefill_a8 and R >= A8_MIN_SEQ; the MLP through mlp_w4a8 when w4a8 and
     R <= the fused row limit (w4a8_geglu and a w4a8_gemv launch up to the
@@ -923,10 +963,12 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec):
     from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, W4A8_PROLOGUE_MAX_ROWS
     from paligemma_tpu_torch.quantization import A8_MIN_SEQ
 
-    mode, lm_head_w4 = qargs["mode"], qargs.get("lm_head_w4", False)
     n_layers = cfg.text_config.num_hidden_layers
     want = collections.Counter(flash_attention=cfg.vision_config.num_hidden_layers + n_layers,
                                decode_attention=n_layers * n_dec)
+    if qargs is None:
+        return want
+    mode, lm_head_w4 = qargs["mode"], qargs.get("lm_head_w4", False)
     for rows in [prompt_len] + [1] * n_dec:
         int8_proj = "a8_matmul" if qargs.get("prefill_a8") and rows >= A8_MIN_SEQ else "q8_matmul"
         if mode == "int4":
@@ -1008,6 +1050,12 @@ def phase_main_path(torch, model, proc, tok, cfg, main_counts):
     n_layers_llm = cfg.text_config.num_hidden_layers
     n_layers_vis = cfg.vision_config.num_hidden_layers
     records = []
+    # One untimed request of each shape first: generate's cache of that
+    # shape (its length rounded up to the pool's bucket) and the decode
+    # graph captured on it are then reused. Each timed request drops its
+    # cache before the next: a cache still held is not handed out again.
+    for i in range(len(REQUESTS)):
+        generation.generate(model, *_request(torch, proc, i), MAX_NEW_TOKENS, tok.eos_token_id)
     kernels.reset_launch_counts()  # counts from here on are the main path's
     for i in range(len(REQUESTS)):
         ids, pix = _request(torch, proc, i)
@@ -1028,23 +1076,29 @@ def phase_main_path(torch, model, proc, tok, cfg, main_counts):
         check(decode == n_layers_llm * n_dec, f"decode launches {decode} for {n_dec} steps")
         check(all(after[k] == before[k] for k in after if "attention" not in k),
               "the bf16 path launched a quant kernel")
-        records.append({"ids": ids, "pix": pix, "tokens": toks, "prefill_ms": prefill_ms,
-                        "decode_ms_per_token": decode_ms})
+        records.append({"ids": ids, "pix": pix, "tokens": toks, "cache_len": cache.max_len,
+                        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms})
+        del cache
     main_counts.update(kernels.launch_counts())
 
     # The chunked decoder (bench.py's decode loop): the same greedy stream
     # with one host sync per chunk instead of one per token.
     rec = records[0]
-    cache = generation.make_cache(model, 1, rec["ids"].shape[1], MAX_NEW_TOKENS)
+    # The cache's shape is generate's (its pool rounds the length up): the
+    # decode kernel splits the cache by its length, so another length can
+    # round differently and flip a near-tie argmax.
+    cache = generation.make_cache(model, 1, rec["ids"].shape[1], rec["cache_len"] - rec["ids"].shape[1])
     logits, cache = generation.prefill(model, rec["ids"], rec["pix"], cache)
     first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    capture_ms = generation.prepare_decode(model, cache)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks, _, cache = generation.decode_steps(model, first, cache, len(rec["tokens"]) - 1)
     chunk = toks[0].tolist()  # the one host sync
     dt = time.perf_counter() - t0
-    log(f"[decode_steps] {len(chunk)} steps in one chunk: {dt * 1e3 / len(chunk):.3f} ms/token "
-        f"(host clock, one sync) | same tokens as generate: {[int(first)] + chunk == rec['tokens']}")
+    log(f"[decode_steps] {len(chunk)} steps in one chunk (CUDA graph, captured in {capture_ms:.2f} ms "
+        f"before): {dt * 1e3 / len(chunk):.3f} ms/token (host clock, one sync) | same tokens as "
+        f"generate: {[int(first)] + chunk == rec['tokens']}")
     check([int(first)] + chunk == rec["tokens"], "decode_steps and generate disagree")
     return records
 
@@ -1067,7 +1121,9 @@ def phase_quant_arm(torch, model, proc, tok, cfg, arm, bf16_rec, main_counts):
     llm_gb = quantization.params_bytes(qmodel.llm) / 1e9
     log(f"[{name}] quantized on the card in {time.perf_counter() - t0:.2f} s | decoder + embeddings "
         f"{llm_gb:.3f} GB (bf16 {quantization.params_bytes(model.llm) / 1e9:.3f} GB)")
-    generation.generate(qmodel, ids, pix, 2, -1, cache_dtype=cache_dtype)  # warm-up: first loads
+    # Warm-up at the timed request's shape: first loads, and the decode
+    # graph of generate's cache of that shape.
+    generation.generate(qmodel, ids, pix, MAX_NEW_TOKENS, -1, cache_dtype=cache_dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1172,6 +1228,262 @@ def phase_plain_path(torch, model, rec, tok):
     check(after == mid, "the plain path launched a kernel")
 
 
+def eager_chunk(torch, model, token, cache, n_steps, sample=None):
+    """``n_steps`` decode steps issued from the host launch by launch (the
+    eager step, no CUDA graph): (tokens (B, n_steps), cache). Greedy, or
+    with ``sample`` = (generator, temperature, top_p) the sampled choice
+    that ``generation.decode_steps`` makes (the values as (B, 1) tensors, as
+    its graph holds them)."""
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.ops.sampling import greedy, select_token_traced
+
+    toks = []
+    for _ in range(n_steps):
+        logits, cache = paligemma.decode_step(model, token, cache)
+        last = logits[:, -1, :]
+        token = (greedy(last) if sample is None else select_token_traced(last, sample[0], True, *sample[1:]))[:, None]
+        toks.append(token)
+    return torch.cat(toks, dim=1), cache
+
+
+def _chunk_times(torch, run):
+    """(tokens, host ms, device-event ms) of ``run()``, which queues a decode
+    chunk and returns its tokens on the device: the host clock runs to the
+    one read of them, the CUDA events bracket the chunk's queued work."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    toks = run()
+    end.record()
+    toks = toks[0].tolist()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return toks, host_ms, start.elapsed_time(end)
+
+
+def _eos_inside(toks):
+    """A token of the stream after its first that is not repeated by the
+    step after it, and did not come before: an EOS there stops generate,
+    is trimmed by generate_chunked and frozen by generate_scan while the
+    model would have gone on with another token: of these the one nearest
+    the middle of the stream. None if the stream has no such token."""
+    for i in sorted(range(1, len(toks) - 1), key=lambda i: abs(i - len(toks) // 2)):
+        if toks[i] not in toks[:i] and toks[i + 1] != toks[i]:
+            return toks[i]
+    return None
+
+
+def _kernel_of(name: str):
+    """The counted wrapper whose kernel a CUDA kernel name is, or None."""
+    for kname, keys in KERNEL_SYMBOLS:
+        if any(k in name for k in keys):
+            return kname
+    return None
+
+
+def _traced_launches(torch, setup, run):
+    """Launches the wrappers' counts gained over ``run(setup())`` against the
+    kernel records of a torch.profiler (CUPTI) trace of it, by wrapper:
+    (gained, traced, tries). A trace with fewer records than launches has
+    lost some (CUPTI's buffers) and is taken again, up to ``TRACE_TRIES``
+    times."""
+    from torch.autograd import DeviceType
+
+    from paligemma_tpu_torch.ops import kernels
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for tries in range(1, TRACE_TRIES + 1):
+        arg = setup()
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            run(arg)
+            torch.cuda.synchronize()
+        gained = {k: v - before[k] for k, v in kernels.launch_counts().items() if v != before[k]}
+        traced = collections.Counter()
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and _kernel_of(evt.key):
+                traced[_kernel_of(evt.key)] += evt.count
+        if all(traced[k] >= n for k, n in gained.items()):
+            break
+    return gained, dict(traced), tries
+
+
+def _graph_arm(torch, model, cfg, name, qargs, cache_dtype, rec, main_counts):
+    """One arm of phase 7 on request 0: launch counts of generate, graph vs
+    eager chunks, generate_chunked and generate_scan; returns the arm's record."""
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.models import gemma
+    from paligemma_tpu_torch.ops import kernels, quant
+
+    ids, pix = rec["ids"], rec["pix"]
+    n_dec = MAX_NEW_TOKENS - 1
+    generation.generate(model, ids, pix, MAX_NEW_TOKENS, -1, cache_dtype=cache_dtype)  # capture
+    kernels.reset_launch_counts()  # this arm's graph path, read right after it
+    toks, gen_cache = generation.generate(model, ids, pix, MAX_NEW_TOKENS, -1, cache_dtype=cache_dtype)
+    cache_len = gen_cache.max_len
+    del gen_cache
+    counts = {**kernels.launch_counts(), "a8_matmul": quant.a8_matmul.calls}
+    main_counts.update(counts)
+    want = _expected_launches(cfg, qargs, ids.shape[1], n_dec)
+    check(all(counts.get(k, 0) == want[k] for k in set(counts) | set(want)),
+          f"[graph {name}] launch counts {counts} differ from the code's {dict(want)}")
+    check(all(0 <= t < cfg.text_config.vocab_size for t in toks), "token id out of range")
+
+    # generate's cache shape (see phase_main_path), so the chunks below
+    # must give generate's tokens bit for bit.
+    cache = generation.make_cache(model, 1, ids.shape[1], cache_len - ids.shape[1], cache_dtype)
+
+    def prefilled():  # the same cache's buffers (and graph), empty again
+        c = gemma.reset_cache(cache)
+        logits, c = generation.prefill(model, ids, pix, c)
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None], c
+
+    first, c = prefilled()
+    capture_ms = generation.prepare_decode(model, c)
+    chunk_want = dict(want - _expected_launches(cfg, qargs, ids.shape[1], 0))  # the decode steps'
+    times = collections.defaultdict(list)
+    for _ in range(2):
+        first, c = prefilled()
+        toks_e, host, dev = _chunk_times(torch, lambda: eager_chunk(torch, model, first, c, n_dec)[0])
+        times["eager"].append((host, dev))
+        first, c = prefilled()
+        before = kernels.launch_counts()
+        toks_g, host, dev = _chunk_times(torch, lambda: generation.decode_steps(model, first, c, n_dec)[0])
+        times["graph"].append((host, dev))
+        chunk_counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+        check([int(first)] + toks_g == [int(first)] + toks_e == toks,
+              f"[graph {name}] graph, eager and generate tokens differ: {[int(first)] + toks_g}, "
+              f"{[int(first)] + toks_e}, {toks}")
+        check(all(chunk_counts.get(k, 0) == chunk_want.get(k, 0) for k in set(chunk_counts) | set(chunk_want)),
+              f"[graph {name}] the graph chunk's launches {chunk_counts} differ from the code's {chunk_want}")
+    host_g, dev_g = (min(x[i] for x in times["graph"]) / n_dec for i in (0, 1))
+    host_e, dev_e = (min(x[i] for x in times["eager"]) / n_dec for i in (0, 1))
+    log(f"[graph {name}] capture {capture_ms:.2f} ms (host, warm-up step included) | decode ms/token "
+        f"(best of 2 chunks of {n_dec}): graph host {host_g:.4f}, device-event {dev_g:.4f} | eager host "
+        f"{host_e:.4f}, device-event {dev_e:.4f} | launches {counts} = expected | graph tokens == eager == "
+        f"generate's {len(toks)}")
+
+    # The counts the replays add against the kernels that ran: one graph
+    # chunk under torch.profiler (CUPTI records each kernel a replay runs).
+    gained, traced, tries = _traced_launches(
+        torch, prefilled, lambda pre: generation.decode_steps(model, *pre, n_dec)[0].tolist())
+    log(f"[graph {name}] one traced graph chunk of {n_dec} (trace {tries} of {TRACE_TRIES}): launches "
+        f"added {gained} | kernel records {traced}")
+    check(gained == traced == {k: v for k, v in chunk_want.items() if v},
+          f"[graph {name}] the traced chunk's kernel records {traced} differ from the launches its "
+          f"replays added {gained} or the code's {chunk_want}")
+
+    # Sampled, the graph chunk against the eager chunk: one seed, one stream.
+    values = [torch.full((1, 1), x, device="cuda") for x in (SAMPLE_TEMPERATURE, SAMPLE_TOP_P)]
+    chunks = []
+    for graph in (False, True):
+        first, c = prefilled()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        chunks.append(generation.decode_steps(model, first, c, n_dec, generator=gen, do_sample=True,
+                                              temperature=values[0], top_p=values[1])[0][0].tolist() if graph
+                      else eager_chunk(torch, model, first, c, n_dec, (gen, *values))[0][0].tolist())
+    check(chunks[0] == chunks[1], f"[graph {name}] sampled graph and eager chunks differ under one seed")
+
+    # generate, generate_chunked and generate_scan, greedy and sampled (one
+    # seed, so one stream through each), with no EOS and with one inside the
+    # stream: generate stops there, generate_chunked trims its chunk there,
+    # generate_scan freezes there.
+    eos_used = {}
+    for mode in ("greedy", "sampled"):
+        def kw():
+            if mode == "greedy":
+                return {"cache_dtype": cache_dtype}
+            return {"cache_dtype": cache_dtype, "do_sample": True, "temperature": SAMPLE_TEMPERATURE,
+                    "top_p": SAMPLE_TOP_P, "generator": torch.Generator(device="cuda").manual_seed(SEED + 1)}
+
+        stream, _ = generation.generate(model, ids, pix, MAX_NEW_TOKENS, -1, **kw())
+        eos = eos_used[mode] = _eos_inside(stream)
+        check(eos is not None, f"[graph {name}] the {mode} stream {stream} holds no token to serve as an "
+                               "EOS inside it")
+        for e in (eos, -1):
+            ref, _ = generation.generate(model, ids, pix, MAX_NEW_TOKENS, e, **kw())
+            chunked = generation.generate_chunked(model, ids, pix, MAX_NEW_TOKENS, e, chunk=GRAPH_CHUNK, **kw())
+            scan = generation.generate_scan(model, ids, pix, MAX_NEW_TOKENS, e, **kw())
+            n_valid, scanned = int(scan.num_valid[0]), scan.tokens[0].tolist()
+            check(ref == (stream[: stream.index(e) + 1] if e in stream else stream),
+                  f"[graph {name}] {mode} generate's EOS stop")
+            check(chunked == ref, f"[graph {name}] {mode} generate_chunked (eos {e}) differs from generate")
+            check(n_valid == len(ref) and scanned[:n_valid] == ref and all(t == e for t in scanned[n_valid:]),
+                  f"[graph {name}] {mode} generate_scan (eos {e}) differs from generate")
+            log(f"[graph {name}] {mode} eos {e}: generate {len(ref)} tokens == generate_chunked (chunk "
+                f"{GRAPH_CHUNK}) == generate_scan (num_valid {n_valid}, then {MAX_NEW_TOKENS - n_valid} frozen)")
+    return {"arm": name, "capture_ms": capture_ms, "graph_host_ms_per_token": host_g,
+            "graph_device_event_ms_per_token": dev_g, "eager_host_ms_per_token": host_e,
+            "eager_device_event_ms_per_token": dev_e, "eos_inside": eos_used,
+            "chunks": {k: [list(x) for x in v] for k, v in times.items()}}
+
+
+def phase_graph(torch, model, cfg, rec, main_counts):
+    """Phase 7: decode as a CUDA graph, in bf16 and in each quantized arm
+    (request 0), then sampled decode through the graph (bf16).
+
+    With random weights a greedy stream repeats the prompt's last token:
+    the residual stream is mostly the input token's embedding, which the
+    tied lm_head scores above every other. No EOS inside such a stream
+    changes what follows it, so for this phase the final norm's scale
+    (1 + w) is redrawn as N(0, 1) from ``GREEDY_NORM_SEED`` (the quantized
+    arms share the tensor): a token no longer scores itself highest, and the
+    greedy streams change token. It is put back after the phase."""
+    norm = model.llm.final_norm.weight
+    saved = norm.detach().clone()
+    gen = torch.Generator(device="cuda").manual_seed(GREEDY_NORM_SEED)
+    with torch.no_grad():
+        norm.copy_(torch.randn(norm.shape, generator=gen, device="cuda", dtype=torch.float32) - 1)
+    try:
+        return _phase_graph(torch, model, cfg, rec, main_counts)
+    finally:
+        with torch.no_grad():
+            norm.copy_(saved)
+
+
+def _phase_graph(torch, model, cfg, rec, main_counts):
+    from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.utils import memory
+
+    torch.cuda.reset_peak_memory_stats()
+    arms = [_graph_arm(torch, model, cfg, "bf16", None, None, rec, main_counts)]
+    for name, qargs, kv_int8 in QUANT_ARMS:
+        qmodel = quantization.quantize_params(model, llm_only=True, **qargs)
+        arms.append(_graph_arm(torch, qmodel, cfg, name, qargs, torch.int8 if kv_int8 else None, rec, main_counts))
+        del qmodel  # with it go its pooled caches and their graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ids, pix = rec["ids"], rec["pix"]
+    greedy_toks = generation.generate(model, ids, pix, MAX_NEW_TOKENS, -1)[0]
+
+    def sampled(seed, temperature=SAMPLE_TEMPERATURE, chunked=False):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        kw = dict(do_sample=True, temperature=temperature, top_p=SAMPLE_TOP_P, generator=gen)
+        if chunked:
+            return generation.generate_chunked(model, ids, pix, MAX_NEW_TOKENS, -1, chunk=GRAPH_CHUNK, **kw)
+        return generation.generate(model, ids, pix, MAX_NEW_TOKENS, -1, **kw)[0]
+
+    a, b, other = sampled(SEED + 1), sampled(SEED + 1), sampled(SEED + 2)
+    chunked, t0 = sampled(SEED + 1, chunked=True), sampled(SEED + 1, temperature=0.0)
+    vocab = cfg.text_config.vocab_size
+    log(f"[graph sampled] temperature {SAMPLE_TEMPERATURE} top_p {SAMPLE_TOP_P}: seed {SEED + 1} twice equal: "
+        f"{a == b} | seed {SEED + 2} differs: {a != other} | generate_chunked (chunk {GRAPH_CHUNK}) with seed "
+        f"{SEED + 1} equal: {chunked == a} | temperature 0 == greedy: {t0 == greedy_toks} | "
+        f"distinct ids {len(set(a))} of {len(a)}")
+    check(a == b, "sampled decode with one seed gave two streams")
+    check(a != other, "two seeds gave one sampled stream")
+    check(chunked == a, "generate_chunked and generate drew different streams from one seed")
+    check(all(0 <= t < vocab for t in a + other), "sampled token id out of range")
+    check(t0 == greedy_toks, "do_sample at temperature 0 is not greedy")
+    peak = memory.peak_memory_mb("cuda")
+    log(f"[graph] peak memory over the phase {peak:.1f} MiB (utils.memory.peak_memory_mb)")
+    log(f"[graph] {json.dumps(arms)}")
+    return arms
+
+
 KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
@@ -1208,6 +1520,7 @@ def main() -> int:
     phase_plain_path(torch, model, records[0], tok)
     arms = [phase_quant_arm(torch, model, proc, tok, cfg, arm, records[0], main_counts) for arm in QUANT_ARMS]
     log(f"[arms] {json.dumps(arms)}")
+    phase_graph(torch, model, cfg, records[0], main_counts)
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
     kernels = []

@@ -1,22 +1,62 @@
-"""Greedy generation (port of ``paligemma_tpu/generation.py``: ``make_cache``,
-prefill, ``decode_steps`` and ``generate``).
+"""Autoregressive generation (port of ``paligemma_tpu/generation.py``:
+``make_cache``, prefill, ``decode_steps``, ``generate``,
+``generate_chunked[_stream]`` and ``generate_scan``), greedy or sampled.
 
-- ``decode_steps`` runs a chunk of greedy steps with no host sync inside it:
-  tokens stay on the device until the caller reads the chunk.
-- ``generate`` is the batch-1 loop of the reference's inference script with
-  a host-side EOS exit (one ``.item()`` per token, like the reference).
+The decode step is one function, ``_decode_step``: the model's step, then
+the token choice (``ops.sampling.select_token_traced``), all on the device
+and in place on static buffers. The cache length lives on the device, so
+the step reads nothing back to the host.
+
+- On a CUDA cache the step is captured in a CUDA graph and replayed: the
+  port's counterpart of the reference's compiled programs. A
+  ``decode_steps`` chunk of ``n`` steps is ``n`` replays with no host sync
+  between them (the reference's one ``lax.scan`` program), its tokens on
+  the device until the caller reads them; ``generate`` replays it once a
+  token (the reference's jitted step). One graph of one step serves every
+  chunk length. A graph is captured once per (cache buffers, model,
+  ``fns``, ``do_sample``, EOS freeze) and kept with the cache
+  (``KVCache.graphs``); a cache with other buffers never replays it. There
+  is no eager fallback: a failed capture raises. On a CPU cache the same
+  function runs eagerly.
+- A replay adds the kernel launches captured in it to the wrappers'
+  launch counts (``ops.kernels.add_launch_counts``); the warm-up step and
+  the capture itself count nothing.
+- Sampling draws from a ``torch.Generator`` (None: the device's default).
+  A graph draws from a generator of its own, set from the caller's before
+  its replays and copied back after them, so the stream is the one the
+  eager step would draw and a seed repeats its tokens.
+- ``generate``, ``generate_chunked_stream`` and ``generate_scan`` take
+  their cache from a per-model pool. Its length is rounded up to a
+  whole number of ``CACHE_LENGTH_STEP`` positions, so prompts of nearby
+  lengths share one cache shape; a cache of that shape that its last
+  caller has dropped is handed out again, zeroed, with its graphs, so a
+  request of a known shape captures nothing. The pool keeps the
+  ``POOL_SLOTS`` caches handed out last.
+- ``generate`` is the batch-1 loop of the reference's inference script: one
+  replay and one host read (the EOS check) per token.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import dataclasses
+import time
+import weakref
+from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from paligemma_tpu_torch.models import gemma, paligemma
 from paligemma_tpu_torch.models.gemma import KVCache
 from paligemma_tpu_torch.models.paligemma import PaliGemma
+from paligemma_tpu_torch.ops import kernels
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
-from paligemma_tpu_torch.ops.sampling import greedy
+from paligemma_tpu_torch.ops.sampling import select_token_traced
+
+Scalar = Union[float, torch.Tensor]
+
+
+class GenerationResult(NamedTuple):
+    tokens: torch.Tensor  # (B, max_new) int32, EOS after the stop
+    num_valid: torch.Tensor  # (B,) int32: tokens up to and including EOS
 
 
 def make_cache(
@@ -26,8 +66,8 @@ def make_cache(
     max_new_tokens: int,
     cache_dtype: Optional[torch.dtype] = None,
 ) -> KVCache:
-    """A cache for ``prompt_len + max_new_tokens`` positions on the model's
-    device. ``cache_dtype`` None: the decoder's activation dtype (the
+    """A new cache for ``prompt_len + max_new_tokens`` positions on the
+    model's device. ``cache_dtype`` None: the decoder's activation dtype (the
     attention kernels take the activations' dtype; an int8 embedding makes
     it bf16); ``torch.int8``: a ``QuantKVCache``."""
     dtype = gemma.activation_dtype(model.llm) if cache_dtype is None else cache_dtype
@@ -35,6 +75,44 @@ def make_cache(
         model.cfg.text_config, batch, prompt_len + max_new_tokens, dtype,
         model.llm.final_norm.weight.device,
     )
+
+
+# The pool of the generate functions' caches: a pooled cache's length is a
+# whole number of this many positions, and each model keeps at most this
+# many caches.
+CACHE_LENGTH_STEP = 64
+POOL_SLOTS = 4
+# Per model (held weakly: a model's caches and their graphs go with it), the
+# slots, the one handed out last at the end: [(batch, length, dtype), the
+# buffers, a weak reference to the KVCache object last handed out].
+_CACHE_POOL: "weakref.WeakKeyDictionary[PaliGemma, List[list]]" = weakref.WeakKeyDictionary()
+
+
+def _pooled_cache(
+    model: PaliGemma, batch: int, prompt_len: int, max_new_tokens: int,
+    cache_dtype: Optional[torch.dtype],
+) -> KVCache:
+    """A cache as ``make_cache`` makes it, its length rounded up to a whole
+    number of ``CACHE_LENGTH_STEP`` positions: the buffers of one that no
+    caller holds any more (zeroed, with the graphs captured on them), or new
+    ones. A slot past the ``POOL_SLOTS`` used last is dropped (its cache
+    lives on with its holder, if any)."""
+    dtype = gemma.activation_dtype(model.llm) if cache_dtype is None else cache_dtype
+    length = -(-(prompt_len + max_new_tokens) // CACHE_LENGTH_STEP) * CACHE_LENGTH_STEP
+    key = (batch, length, dtype)
+    slots = _CACHE_POOL.setdefault(model, [])
+    for i, slot in enumerate(slots):
+        if slot[0] == key and slot[2]() is None:
+            del slots[i]
+            cache = gemma.reset_cache(slot[1])
+            break
+    else:
+        slot = [key, make_cache(model, batch, prompt_len, length - prompt_len, dtype), None]
+        cache = dataclasses.replace(slot[1])
+        del slots[: max(0, len(slots) + 1 - POOL_SLOTS)]
+    slot[2] = weakref.ref(cache)
+    slots.append(slot)
+    return cache
 
 
 @torch.no_grad()
@@ -49,6 +127,178 @@ def prefill(
     return paligemma.prefill(model, input_ids, pixel_values, cache, full_logits=False, fns=fns)
 
 
+# ---------------------------------------------------------------------------
+# The decode step, eager or as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class _StepState:
+    """The step's inputs and outputs on the device (a graph's static
+    buffers): ``token`` (B, 1) is read and overwritten by the next token,
+    which also lands in ``out[:, step]``; ``step`` (1,) advances."""
+
+    token: torch.Tensor  # (B, 1) int32
+    out: torch.Tensor  # (B, max_len) int32
+    step: torch.Tensor  # (1,) int64
+    temperature: torch.Tensor  # (B, 1) fp32
+    top_p: torch.Tensor  # (B, 1) fp32
+    eos: torch.Tensor  # () int32
+    done: torch.Tensor  # (B,) bool, rows past their EOS (the freeze)
+    generator: Optional[torch.Generator] = None
+
+
+def _decode_step(
+    model: PaliGemma, cache: KVCache, st: _StepState, fns: KernelFns, do_sample: bool,
+    freeze: bool,
+) -> None:
+    """One decode step, in place: ``st.token`` -> the next token, the cache
+    advanced by one. With ``freeze`` a row that has emitted EOS emits EOS
+    (and is fed it) from then on, as the reference's ``generate_scan``."""
+    logits, _ = paligemma.decode_step(model, st.token, cache, fns)
+    nxt = select_token_traced(logits[:, -1, :], st.generator, do_sample, st.temperature, st.top_p)
+    if freeze:
+        nxt = torch.where(st.done, st.eos, nxt)
+        st.done.logical_or_(nxt == st.eos)
+    st.token.copy_(nxt[:, None])
+    st.out.index_copy_(1, st.step, st.token)
+    st.step.add_(1)
+
+
+def _buffers(cache: KVCache) -> tuple:
+    return tuple(getattr(cache, f.name).data_ptr() for f in dataclasses.fields(cache)
+                 if isinstance(getattr(cache, f.name), torch.Tensor))
+
+
+class _DecodeRunner:
+    """``_decode_step`` on one cache's buffers: eager on a CPU cache; on a
+    CUDA cache, captured as a CUDA graph that a run replays once a step.
+    Holds no reference to the cache or the model (the model weakly, to tell
+    whether it is still the one the graph reads)."""
+
+    def __init__(self, model, cache, fns, do_sample, freeze):
+        b, dev = cache.valid.shape[0], cache.k.device
+        self.state = _StepState(
+            token=torch.zeros((b, 1), dtype=torch.int32, device=dev),
+            out=torch.zeros((b, cache.max_len), dtype=torch.int32, device=dev),
+            step=torch.zeros(1, dtype=torch.int64, device=dev),
+            temperature=torch.zeros((b, 1), dtype=torch.float32, device=dev),
+            top_p=torch.zeros((b, 1), dtype=torch.float32, device=dev),
+            eos=torch.zeros((), dtype=torch.int32, device=dev),
+            done=torch.zeros(b, dtype=torch.bool, device=dev),
+        )
+        self.model_ref, self.buffers = weakref.ref(model), _buffers(cache)
+        self.fns, self.do_sample, self.freeze = fns, do_sample, freeze
+        self.graph, self.counts, self.capture_ms = None, {}, 0.0
+        if dev.type == "cuda":
+            self._capture(model, cache)
+
+    def serves(self, model: PaliGemma, cache: KVCache) -> bool:
+        return self.model_ref() is model and self.buffers == _buffers(cache)
+
+    def _capture(self, model: PaliGemma, cache: KVCache) -> None:
+        """Warm up one step on a side stream (lazy set-up: cuBLAS handles and
+        workspaces), undo what it did to the cache's length, then capture."""
+        st, dev = self.state, cache.k.device
+        if self.do_sample:  # a generator of the graph's own, registered with it
+            st.generator = torch.Generator(device=dev)
+        t0 = time.perf_counter()
+        length, valid, host_length = cache.length.clone(), cache.valid.clone(), cache.host_length
+        before = kernels.launch_counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step(model, cache)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        cache.length.copy_(length)
+        cache.valid.copy_(valid)
+        cache.host_length = host_length
+        mid = kernels.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        if st.generator is not None:
+            graph.register_generator_state(st.generator)
+        with torch.cuda.graph(graph):
+            self._step(model, cache)
+        cache.host_length = host_length
+        after = kernels.launch_counts()
+        self.counts = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+        kernels.add_launch_counts({k: before[k] - after[k] for k in after})
+        self.graph, self.capture_ms = graph, (time.perf_counter() - t0) * 1e3
+
+    def _step(self, model, cache) -> None:
+        _decode_step(model, cache, self.state, self.fns, self.do_sample, self.freeze)
+
+    def start(self, token: torch.Tensor, temperature: Scalar = 0.0, top_p: Scalar = 1.0,
+              eos: Optional[int] = None) -> None:
+        """Set the inputs of a run: the (B, 1) token, the sampling values
+        (floats, or 0-d or (B, 1) tensors) and, with the freeze, the EOS id
+        (rows whose ``token`` is EOS are done)."""
+        st = self.state
+        st.token.copy_(token)
+        st.step.zero_()
+        if self.do_sample:
+            for buf, x in ((st.temperature, temperature), (st.top_p, top_p)):
+                if isinstance(x, torch.Tensor):
+                    buf.copy_(x)
+                else:
+                    buf.fill_(x)
+        if self.freeze:
+            st.eos.fill_(eos)
+            st.done.copy_(st.token[:, 0] == eos)
+
+    def run(self, model: PaliGemma, cache: KVCache, n: int,
+            generator: Optional[torch.Generator] = None) -> None:
+        """``n`` steps on ``cache`` from ``start``'s inputs (or where the last
+        run stopped); the tokens land in ``state.out[:, :n]`` of a run."""
+        if cache.host_length + n > cache.max_len:
+            raise ValueError(f"cache full: {cache.host_length} + {n} > {cache.max_len}")
+        if self.graph is None:
+            self.state.generator = generator
+            for _ in range(n):
+                self._step(model, cache)
+            return
+        if self.do_sample:
+            caller = generator
+            if caller is None:
+                caller = torch.cuda.default_generators[cache.k.device.index or 0]
+            self.state.generator.set_state(caller.get_state())
+        for _ in range(n):
+            self.graph.replay()
+            kernels.add_launch_counts(self.counts)
+        cache.host_length += n
+        if self.do_sample:
+            caller.set_state(self.state.generator.get_state())
+
+
+def _key(model: PaliGemma, fns: KernelFns, do_sample: bool, freeze: bool) -> tuple:
+    return id(model), fns, do_sample, freeze
+
+
+def _runner(
+    model: PaliGemma, cache: KVCache, fns: KernelFns, do_sample: bool, freeze: bool = False,
+) -> _DecodeRunner:
+    """The cache's runner for this step, captured now if it has none that
+    reads this model and these buffers."""
+    key = _key(model, fns, do_sample, freeze)
+    runner = cache.graphs.get(key)
+    if runner is None or not runner.serves(model, cache):
+        runner = cache.graphs[key] = _DecodeRunner(model, cache, fns, do_sample, freeze)
+    return runner
+
+
+@torch.no_grad()
+def prepare_decode(
+    model: PaliGemma, cache: KVCache, fns: KernelFns = KERNELS, *, do_sample: bool = False,
+) -> float:
+    """Capture the cache's decode graph now, before the first step needs it
+    (nothing to do on a CPU cache or when it is captured already). Returns
+    the capture's host ms, warm-up step included (0.0 when nothing was
+    captured)."""
+    had = cache.graphs.get(_key(model, fns, do_sample, False))
+    runner = _runner(model, cache, fns, do_sample)
+    return runner.capture_ms if runner is not had else 0.0
+
+
 @torch.no_grad()
 def decode_steps(
     model: PaliGemma,
@@ -56,18 +306,31 @@ def decode_steps(
     cache: KVCache,
     n_steps: int,
     fns: KernelFns = KERNELS,
+    *,
+    generator: Optional[torch.Generator] = None,
+    do_sample: bool = False,
+    temperature: Scalar = 0.0,
+    top_p: Scalar = 0.9,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
-    """``n_steps`` greedy steps from the (B, 1) ``token``.
+    """``n_steps`` decode steps from the (B, 1) ``token``, greedy or sampled
+    (``temperature`` <= 0 under ``do_sample`` decodes greedily); on a CUDA
+    cache ``n_steps`` replays of the captured step.
 
-    Returns (tokens (B, n_steps), last token (B, 1), cache); nothing is read
-    back to the host.
+    Returns (tokens (B, n_steps) int32, last token (B, 1), cache); nothing
+    is read back to the host.
     """
-    toks = []
-    for _ in range(n_steps):
-        logits, cache = paligemma.decode_step(model, token, cache, fns)
-        token = greedy(logits[:, -1, :])[:, None]
-        toks.append(token)
-    return torch.cat(toks, dim=1), token, cache
+    runner = _runner(model, cache, fns, do_sample)
+    runner.start(token, temperature, top_p)
+    runner.run(model, cache, n_steps, generator)
+    st = runner.state
+    return st.out[:, :n_steps].clone(), st.token.clone(), cache
+
+
+def _first_token(model, input_ids, pixel_values, cache, fns, generator, do_sample, temperature,
+                 top_p) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill, then the first token (B,) chosen on the device."""
+    logits, cache = prefill(model, input_ids, pixel_values, cache, fns)
+    return select_token_traced(logits[:, -1, :], generator, do_sample, temperature, top_p), cache
 
 
 @torch.no_grad()
@@ -80,29 +343,135 @@ def generate(
     step_callback: Optional[Callable[[int], None]] = None,
     fns: KernelFns = KERNELS,
     cache_dtype: Optional[torch.dtype] = None,
+    *,
+    do_sample: bool = False,
+    temperature: Scalar = 0.8,
+    top_p: Scalar = 0.9,
+    generator: Optional[torch.Generator] = None,
+    stop_at_eos: bool = True,
 ) -> Tuple[List[int], KVCache]:
-    """Batch-1 greedy generation with a host EOS exit (``eos_token_id=-1``
-    never matches a token, so it always runs ``max_new_tokens`` steps).
+    """Batch-1 generation with a host EOS exit (reference: inference.py:55-78).
 
     ``step_callback(step)`` runs after each token has reached the host
     (step 0 is the prefill's token). ``cache_dtype``: as ``make_cache``'s
-    (``torch.int8`` for the int8 cache). Returns (token ids, final cache).
+    (``torch.int8`` for the int8 cache). Sampled with ``do_sample`` and
+    ``temperature > 0``. Returns (token ids, final cache); the cache is the
+    pool's (the next request of its shape takes its buffers once the
+    caller drops it).
     """
     b, t = input_ids.shape
     if b != 1:
         raise ValueError(f"generate() is batch-1 (got batch {b})")
-    cache = make_cache(model, b, t, max_new_tokens, cache_dtype)
-    logits, cache = prefill(model, input_ids, pixel_values, cache, fns)
-    token = greedy(logits[:, -1, :])
+    cache = _pooled_cache(model, b, t, max_new_tokens, cache_dtype)
+    token, cache = _first_token(model, input_ids, pixel_values, cache, fns, generator, do_sample,
+                                temperature, top_p)
     out = [int(token[0])]
     if step_callback is not None:
         step_callback(0)
+    if (stop_at_eos and out[-1] == eos_token_id) or max_new_tokens == 1:
+        return out, cache
+    runner = _runner(model, cache, fns, do_sample)
+    runner.start(token[:, None], temperature, top_p)
     for step in range(1, max_new_tokens):
-        if out[-1] == eos_token_id:
-            break
-        logits, cache = paligemma.decode_step(model, token[:, None], cache, fns)
-        token = greedy(logits[:, -1, :])
-        out.append(int(token[0]))  # host sync, like the reference's .item()
+        runner.run(model, cache, 1, generator)
+        out.append(int(runner.state.token[0, 0]))  # host sync, like the reference's .item()
         if step_callback is not None:
             step_callback(step)
+        if stop_at_eos and out[-1] == eos_token_id:
+            break
     return out, cache
+
+
+@torch.no_grad()
+def generate_chunked_stream(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    max_new_tokens: int,
+    eos_token_id: int,
+    fns: KernelFns = KERNELS,
+    cache_dtype: Optional[torch.dtype] = None,
+    *,
+    do_sample: bool = False,
+    temperature: Scalar = 0.8,
+    top_p: Scalar = 0.9,
+    generator: Optional[torch.Generator] = None,
+    chunk: int = 16,
+) -> Iterator[List[int]]:
+    """Batch-1 streaming generation: yields the prefill's token, then the
+    tokens of each ``decode_steps`` chunk (one host read a chunk). The
+    cache is allocated to whole chunks, so every chunk replays one graph;
+    the last piece is trimmed at ``max_new_tokens``, then at EOS."""
+    b, t = input_ids.shape
+    if b != 1:
+        raise ValueError(f"generate_chunked is batch-1 (got batch {b})")
+    alloc = -(-max(max_new_tokens - 1, 1) // chunk) * chunk + 1
+    cache = _pooled_cache(model, b, t, alloc, cache_dtype)
+    tok, cache = _first_token(model, input_ids, pixel_values, cache, fns, generator, do_sample,
+                              temperature, top_p)
+    first = int(tok[0])
+    yield [first]
+    if first == eos_token_id:
+        return
+    produced, tok = 1, tok[:, None]
+    while produced < max_new_tokens:
+        toks, tok, cache = decode_steps(model, tok, cache, chunk, fns, generator=generator,
+                                        do_sample=do_sample, temperature=temperature, top_p=top_p)
+        new = toks[0].tolist()[: max_new_tokens - produced]  # trim past max_new, then at EOS
+        if eos_token_id in new:
+            yield new[: new.index(eos_token_id) + 1]
+            return
+        produced += len(new)
+        yield new
+
+
+def generate_chunked(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    max_new_tokens: int,
+    eos_token_id: int,
+    **kwargs,
+) -> List[int]:
+    """``generate_chunked_stream``'s pieces joined: ``generate``'s tokens
+    with one host read a chunk instead of one a token."""
+    out: List[int] = []
+    for piece in generate_chunked_stream(model, input_ids, pixel_values, max_new_tokens,
+                                         eos_token_id, **kwargs):
+        out.extend(piece)
+    return out
+
+
+@torch.no_grad()
+def generate_scan(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    max_new_tokens: int,
+    eos_token_id: int,
+    fns: KernelFns = KERNELS,
+    cache_dtype: Optional[torch.dtype] = None,
+    *,
+    do_sample: bool = False,
+    temperature: Scalar = 0.8,
+    top_p: Scalar = 0.9,
+    generator: Optional[torch.Generator] = None,
+) -> GenerationResult:
+    """Prefill, then ``max_new_tokens - 1`` decode steps with no host sync
+    (on CUDA, replays of the captured step with the EOS freeze: a row's
+    tokens after its EOS are EOS). Any batch. ``num_valid`` counts each
+    row's tokens up to and including its first EOS; nothing is read back
+    until the caller reads the result."""
+    b, t = input_ids.shape
+    cache = _pooled_cache(model, b, t, max_new_tokens, cache_dtype)
+    first, cache = _first_token(model, input_ids, pixel_values, cache, fns, generator, do_sample,
+                                temperature, top_p)
+    tokens = first[:, None]
+    if max_new_tokens > 1:
+        runner = _runner(model, cache, fns, do_sample, freeze=True)
+        runner.start(tokens, temperature, top_p, eos=eos_token_id)
+        runner.run(model, cache, max_new_tokens - 1, generator)
+        tokens = torch.cat([tokens, runner.state.out[:, : max_new_tokens - 1]], dim=1)
+    is_eos = (tokens == eos_token_id).to(torch.int32)
+    done_before = (is_eos.cumsum(dim=1) - is_eos) > 0  # a token is valid unless EOS came before it
+    return GenerationResult(tokens.to(torch.int32), (~done_before).sum(dim=1).to(torch.int32))

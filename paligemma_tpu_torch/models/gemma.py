@@ -5,14 +5,21 @@ blocks (input_ln -> GQA attention -> +res -> post_ln -> GeGLU MLP -> +res),
 final RMSNorm, fp32 logits through the tied embedding.
 
 - The KV cache is preallocated, ``(L, B, max_len, Hkv, hd)``, with its
-  length kept as a host int. Forward writes this step's K/V into it IN PLACE
-  and advances ``length`` (JAX returns a new cache instead).
-- Prefill (T > 1) writes K/V into the cache, then attends over the fresh K/V
-  only with ``flash_attention`` (bidirectional prefix-LM, all-zeros mask).
+  length on the device, a 0-d int32 tensor, as the reference's. Forward
+  writes this step's K/V IN PLACE at that length (``index_copy_`` with a
+  device index, the counterpart of ``dynamic_update_slice``) and advances
+  it on the device (JAX returns a new cache instead). A decode step reads
+  nothing back to the host, so it can be captured in a CUDA graph and
+  replayed (``generation.py``). A host mirror, ``host_length``, serves
+  only the bounds checks; forward advances it, and so does a caller that
+  replays captured steps.
+- Prefill (T > 1) writes K/V into the (empty) cache, then attends over the
+  fresh K/V only with ``flash_attention`` (bidirectional prefix-LM,
+  all-zeros mask).
 - Decode (T == 1) attends over the whole cache buffer with
   ``decode_attention``; unwritten slots are masked by the per-row valid
-  length, a preallocated (B,) int32 device tensor filled from the host
-  length, so no step reads anything back from the device.
+  length, a preallocated (B,) int32 device tensor set from the device
+  length.
 - The int8 cache (``QuantKVCache``, ``init_cache(dtype=torch.int8)``) keeps
   each written K and V row as int8 with one fp32 scale
   (``quantize_kv_rows``). Prefill still attends over its fresh, unquantized
@@ -48,14 +55,19 @@ class KVCache:
     """Preallocated per-layer KV cache on the device.
 
     k, v: (num_layers, batch, max_len, kv_heads, head_dim).
-    length: host int, the number of written positions.
+    length: () int32 device tensor, the number of written positions.
     valid: (batch,) int32 device tensor, the decode kernel's visible length.
+    host_length: host mirror of ``length`` for the bounds checks.
+    graphs: the decode graphs captured on these buffers
+    (``generation.py``), shared by every ``KVCache`` object over them.
     """
 
     k: torch.Tensor
     v: torch.Tensor
-    length: int
+    length: torch.Tensor
     valid: torch.Tensor
+    host_length: int = dataclasses.field(default=0, kw_only=True)
+    graphs: dict = dataclasses.field(default_factory=dict, kw_only=True, compare=False, repr=False)
 
     @property
     def max_len(self) -> int:
@@ -83,11 +95,22 @@ def init_cache(
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
     k = torch.zeros(shape, dtype=dtype, device=device)
     v = torch.zeros(shape, dtype=dtype, device=device)
+    length = torch.zeros((), dtype=torch.int32, device=device)
     valid = torch.zeros(batch, dtype=torch.int32, device=device)
     if dtype == torch.int8:
         k_scale = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-        return QuantKVCache(k, v, 0, valid, k_scale, torch.zeros_like(k_scale))
-    return KVCache(k, v, 0, valid)
+        return QuantKVCache(k, v, length, valid, k_scale, torch.zeros_like(k_scale))
+    return KVCache(k, v, length, valid)
+
+
+def reset_cache(cache: KVCache) -> KVCache:
+    """A new ``KVCache`` object over ``cache``'s buffers, zeroed and empty,
+    that shares its captured graphs; ``cache`` must be out of use."""
+    for f in dataclasses.fields(cache):
+        x = getattr(cache, f.name)
+        if isinstance(x, torch.Tensor):
+            x.zero_()
+    return dataclasses.replace(cache, host_length=0)
 
 
 class RMSNorm(nn.Module):
@@ -124,7 +147,7 @@ class GemmaLayer(nn.Module):
         self.gate_up = nn.Linear(d, 2 * i, bias=False, dtype=dtype)  # fused gate | up
         self.down = nn.Linear(i, d, bias=False, dtype=dtype)
 
-    def attention(self, x, cos, sin, cache: Optional[KVCache], li: int, fns: KernelFns):
+    def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns):
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -134,15 +157,15 @@ class GemmaLayer(nn.Module):
         v = v.view(b, t, hkv, hd)
         scale = hd**-0.5
         if cache is not None:
-            pos = cache.length
+            # In place at the device positions ``pos`` (T,) int64.
             k_st, v_st, row_scales = k, v, {}
             if isinstance(cache, QuantKVCache):
                 (k_st, ks), (v_st, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-                cache.k_scale[li, :, pos : pos + t] = ks
-                cache.v_scale[li, :, pos : pos + t] = vs
+                cache.k_scale[li].index_copy_(1, pos, ks)
+                cache.v_scale[li].index_copy_(1, pos, vs)
                 row_scales = {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]}
-            cache.k[li, :, pos : pos + t] = k_st  # in place
-            cache.v[li, :, pos : pos + t] = v_st
+            cache.k[li].index_copy_(1, pos, k_st.to(cache.k.dtype))
+            cache.v[li].index_copy_(1, pos, v_st.to(cache.v.dtype))
             if t == 1:
                 out = fns.decode(q, cache.k[li], cache.v[li], cache.valid, scale=scale, **row_scales)
                 return proj(out.reshape(b, t, h * hd), self.o, fns)
@@ -159,8 +182,8 @@ class GemmaLayer(nn.Module):
             gu_w, dn_w = self.gate_up_i8, self.down_i8  # matrix-shaped calls
         return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
 
-    def forward(self, h, cos, sin, cache: Optional[KVCache], li: int, fns: KernelFns):
-        h = h + self.attention(self.input_ln(h), cos, sin, cache, li, fns)
+    def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns):
+        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns)
         return h + self.mlp(self.post_ln(h), fns)
 
 
@@ -193,26 +216,31 @@ def forward(
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
 
-    With a cache, K/V are written at ``cache.length``; T == 1 decodes over
-    the cache, T > 1 is a prefill into an empty cache.
+    With a cache, K/V are written at the device ``cache.length``; T == 1
+    decodes over the cache, T > 1 is a prefill into an empty cache. Nothing
+    is read back from the device: the checks use ``cache.host_length``.
     """
     cfg = model.cfg
     dtype = inputs_embeds.dtype
     b, t, _ = inputs_embeds.shape
-    h = inputs_embeds * torch.tensor(cfg.hidden_size**0.5, dtype=dtype)
+    # sqrt(hidden) rounded to the activation dtype, as a host scalar.
+    h = inputs_embeds * float(torch.tensor(cfg.hidden_size**0.5, dtype=dtype))
     cos, sin = rope_cos_sin(
         positions, cfg.head_dim, cfg.rope_theta, cfg.max_position_embeddings, dtype
     )
+    pos = None
     if cache is not None:
-        if t > 1 and cache.length:
+        if t > 1 and cache.host_length:
             raise ValueError("prefill (T > 1) needs an empty cache")
-        if cache.length + t > cache.max_len:
-            raise ValueError(f"cache full: {cache.length} + {t} > {cache.max_len}")
-        cache.valid.fill_(cache.length + t)
+        if cache.host_length + t > cache.max_len:
+            raise ValueError(f"cache full: {cache.host_length} + {t} > {cache.max_len}")
+        pos = cache.length + torch.arange(t, dtype=torch.int64, device=cache.length.device)
+        cache.valid.copy_((cache.length + t).expand(b))
     for li, layer in enumerate(model.layers):
-        h = layer(h, cos, sin, cache, li, fns)
+        h = layer(h, cos, sin, cache, pos, li, fns)
     if cache is not None:
-        cache.length += t
+        cache.length.add_(t)
+        cache.host_length += t
     return model.final_norm(h), cache
 
 

@@ -8,7 +8,8 @@
   a concat; only ``input_ids[:, n_img:]`` is embedded (the image token id may
   lie outside the embedding table, and ``F.embedding`` raises where
   ``jnp.take`` clamps).
-- Prefill positions are 0..T-1; a decode step sits at position = cache length.
+- Prefill positions are 0..T-1; a decode step sits at position = cache
+  length, read on the device (nothing goes back to the host).
 
 Every function takes ``fns``, the kernel functions to run
 (``ops.kernels.KernelFns``); the default dispatches to the CUDA kernels on a
@@ -114,10 +115,10 @@ def prefill(
 def decode_step(
     model: PaliGemma, token: torch.Tensor, cache: KVCache, fns: KernelFns = KERNELS
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One step: (B, 1) token -> (B, 1, V) fp32 logits; the cache advances by one."""
-    positions = torch.full(
-        (token.shape[0], 1), cache.length, dtype=torch.int32, device=token.device
-    )
+    """One step: (B, 1) token -> (B, 1, V) fp32 logits; the cache advances by
+    one. The position is the device cache length, so the step reads nothing
+    back to the host and can be captured in a CUDA graph."""
+    positions = cache.length.view(1, 1).expand(token.shape[0], 1)
     embeds = gemma.embed_tokens(model.llm, token)
     hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns)
     return gemma.logits(model.llm, hidden, fns), cache

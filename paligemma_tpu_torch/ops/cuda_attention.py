@@ -26,7 +26,7 @@ positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -282,13 +282,19 @@ def _check_cuda(name: str, q, k, v, h: int, hkv: int, d: int, kv_dtype=torch.bfl
         raise ValueError(f"{name}: {h} query heads do not group over {hkv} kv heads")
 
 
+_COUNTED = (flash_attention, decode_attention)
+
+
 def launch_counts() -> dict:
-    return {
-        "flash_attention": flash_attention.launches,
-        "decode_attention": decode_attention.launches,
-    }
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def add_launch_counts(counts: Mapping[str, int]) -> None:
+    """Add ``counts[name]`` to the launch count of each kernel named there."""
+    for fn in _COUNTED:
+        fn.launches += counts.get(fn.__name__, 0)
 
 
 def reset_launch_counts() -> None:
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0

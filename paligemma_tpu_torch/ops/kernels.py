@@ -9,7 +9,7 @@ Every model function takes one ``fns`` argument, a ``KernelFns``:
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import torch
 
@@ -46,6 +46,14 @@ PLAIN = KernelFns(
 def launch_counts() -> dict:
     """Launches of every kernel."""
     return {**ca.launch_counts(), **quant.launch_counts()}
+
+
+def add_launch_counts(counts: Mapping[str, int]) -> None:
+    """Add ``counts`` (named as ``launch_counts`` names them) to the launch
+    counts. The replay of a CUDA graph adds the launches captured in it:
+    its kernels run without their wrappers."""
+    ca.add_launch_counts(counts)
+    quant.add_launch_counts(counts)
 
 
 def reset_launch_counts() -> None:

@@ -52,7 +52,7 @@ after a ``quant_rows`` launch, which ``quant_rows`` counts), and
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -518,18 +518,21 @@ def _check_weight(name, x, w, scale, dtype, shape) -> None:
         raise ValueError(f"{name}: scale must be contiguous fp32 of shape ({shape[0]},)")
 
 
+_COUNTED = (q8_matmul, q4_matmul, w4a8_gemv, w4a8_geglu, quant_rows)
+
+
 def launch_counts() -> dict:
-    return {
-        "q8_matmul": q8_matmul.launches,
-        "q4_matmul": q4_matmul.launches,
-        "w4a8_gemv": w4a8_gemv.launches,
-        "w4a8_geglu": w4a8_geglu.launches,
-        "quant_rows": quant_rows.launches,
-    }
+    return {fn.__name__: fn.launches for fn in _COUNTED}
+
+
+def add_launch_counts(counts: Mapping[str, int]) -> None:
+    """Add ``counts[name]`` to the launch count of each kernel named there."""
+    for fn in _COUNTED:
+        fn.launches += counts.get(fn.__name__, 0)
 
 
 def reset_launch_counts() -> None:
     """Zero every launch count, and ``a8_matmul``'s call count."""
-    for fn in (q8_matmul, q4_matmul, w4a8_gemv, w4a8_geglu, quant_rows):
+    for fn in _COUNTED:
         fn.launches = 0
     a8_matmul.calls = 0

@@ -5,7 +5,8 @@
 Each kernel is held to its plain version on the same inputs (two bf16 ulps,
 see chip_smoke.py; the integer stages exactly), and a tiny model's kernel
 path to its plain path, in bf16 and in the int8, int4 and w4a8 modes and
-with the int8 KV cache.
+with the int8 KV cache; the decode step replayed as a CUDA graph must give
+the eager step's tokens and launch counts, greedy and sampled.
 """
 import dataclasses
 
@@ -16,8 +17,9 @@ import paligemma_tpu_torch
 from paligemma_tpu_torch import generation, quantization
 from paligemma_tpu_torch.models import gemma, paligemma
 from paligemma_tpu_torch.ops import cuda_attention as ca
-from paligemma_tpu_torch.ops import quant
+from paligemma_tpu_torch.ops import kernels, quant
 from paligemma_tpu_torch.ops.kernels import PLAIN
+from paligemma_tpu_torch.ops.sampling import select_token_traced
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 2.0**-7, 2e-3
@@ -395,3 +397,59 @@ def test_tiny_int8_kv_model_kernel_path_matches_plain_path(cuda):
     got, cache = generation.generate(model, ids, pix, 6, -1, cache_dtype=torch.int8)
     want, _ = generation.generate(model, ids, pix, 6, -1, fns=PLAIN, cache_dtype=torch.int8)
     assert isinstance(cache, gemma.QuantKVCache) and got[0] == want[0]
+
+
+# ---------------------------------------------------------------------------
+# The decode step as a CUDA graph (generation.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_decode_graph_gives_the_eager_tokens_and_launch_counts(cuda, kv_int8):
+    cfg = paligemma_tpu_torch.tiny_config()
+    cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, hidden_size=32, intermediate_size=64))
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    n_img, layers = cfg.vision_config.num_image_tokens, cfg.text_config.num_hidden_layers
+    ids = torch.cat([torch.full((1, n_img), cfg.image_token_index), torch.arange(2, 9)[None]], 1).to(cuda)
+    pix = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)).to(cuda, torch.bfloat16)
+    cache_dtype = torch.int8 if kv_int8 else None
+    n = 7
+
+    def prefilled():
+        cache = generation.make_cache(model, 1, ids.shape[1], n + 1, cache_dtype)
+        logits, cache = generation.prefill(model, ids, pix, cache)
+        return logits[:, -1], cache
+
+    def eager(temperature):  # the step issued launch by launch, no graph
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        last, cache = prefilled()
+        tok = select_token_traced(last, gen, True, 0.8 if temperature else 0.0, 0.9)[:, None]
+        out = [int(tok)]
+        for _ in range(n):
+            lg, cache = paligemma.decode_step(model, tok, cache)
+            tok = select_token_traced(lg[:, -1], gen, True, temperature, torch.full((1, 1), 0.9, device=cuda))
+            tok = tok[:, None]
+            out.append(int(tok))
+        return out
+
+    greedy = eager(torch.zeros(1, 1, device=cuda))
+    last, cache = prefilled()
+    assert generation.prepare_decode(model, cache) > 0.0 and generation.prepare_decode(model, cache) == 0.0
+    before = kernels.launch_counts()
+    toks, tok, cache = generation.decode_steps(model, last.argmax(-1).to(torch.int32)[:, None], cache, n)
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    assert [greedy[0]] + toks[0].tolist() == greedy and int(tok) == greedy[-1]
+    assert int(cache.length) == cache.host_length == ids.shape[1] + n
+    assert counts == {**{k: 0 for k in counts}, "decode_attention": n * layers}
+    got, _ = generation.generate(model, ids, pix, n + 1, -1, cache_dtype=cache_dtype)
+    assert got == greedy
+
+    sampled = eager(torch.full((1, 1), 0.8, device=cuda))
+    kw = dict(do_sample=True, temperature=0.8, top_p=0.9, cache_dtype=cache_dtype)
+    runs = [generation.generate(model, ids, pix, n + 1, -1, generator=torch.Generator(device=cuda).manual_seed(s),
+                                **kw)[0] for s in (3, 3, 4)]
+    assert runs[0] == runs[1] == sampled != runs[2]
+    chunked = generation.generate_chunked(model, ids, pix, n + 1, -1, chunk=3,
+                                          generator=torch.Generator(device=cuda).manual_seed(3), **kw)
+    assert chunked == sampled

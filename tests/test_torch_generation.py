@@ -1,7 +1,11 @@
 """Processor, generation and packaging of the PyTorch port, on the CPU.
 
 The processor must produce JAX's inputs exactly; greedy generation must
-give JAX's tokens on the same weights (tiny config, fp32).
+give JAX's tokens on the same weights (tiny config, fp32), through
+``generate``, ``generate_chunked`` and ``generate_scan``, with the float
+and the int8 cache; the cache length lives on the device and must hold
+JAX's. Sampled generation repeats itself under one seed (its draws cannot
+be JAX's; ``test_torch_sampling.py`` holds them to JAX's nucleus).
 """
 import os
 import subprocess
@@ -23,6 +27,7 @@ import paligemma_tpu_torch
 from paligemma_tpu_torch import generation as tgen
 from paligemma_tpu_torch import processing as tproc
 from paligemma_tpu_torch.ops import _build
+from paligemma_tpu_torch.utils import memory, profiling
 from paligemma_tpu_torch.utils.convert import from_jax_params
 
 REPO = Path(__file__).resolve().parent.parent
@@ -166,3 +171,198 @@ def test_nvcc_command_targets_sm90a_into_the_ignored_build_dir(monkeypatch, tmp_
     # A changed flag is a new build directory, as a changed source is.
     monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
     assert _build.source_hash() != out.parent.name
+
+
+# ---------------------------------------------------------------------------
+# The device-length cache, generate_chunked and generate_scan, sampling
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def varied(setup):
+    """Weights whose greedy stream for request 0 changes token after its
+    first steps ([10, 10, 1017, 823, 823, ...]), so that an EOS inside the
+    stream is followed by other tokens and the trim and the freeze act."""
+    cfg_j, _, _, cfg_t, _, pt = setup
+    params = jpg.init_params(cfg_j, jax.random.PRNGKey(3), jnp.float32)
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, params), cfg_t, device="cpu")
+    ids, pix = _inputs(pt)
+    full, _ = tgen.generate(model, torch.from_numpy(ids), torch.from_numpy(pix), 9, -1)
+    # EOS: the first token after step 0 that the next step does not repeat.
+    i = next(i for i in range(1, len(full) - 1) if full[i + 1] != full[i] and full[i] not in full[:i])
+    return cfg_j, params, model, pt, full[i]
+
+
+CACHES = {"float": (jnp.float32, None), "int8": (jnp.int8, torch.int8)}
+
+
+@pytest.mark.parametrize("kv", list(CACHES))
+def test_device_length_cache_holds_jax_length(varied, kv):
+    cfg_j, params, model, pt, _ = varied
+    jdtype, tdtype = CACHES[kv]
+    ids, pix = _inputs(pt)
+    t = ids.shape[1]
+    jcache = jgen.make_cache(cfg_j, 1, t, 4, jdtype)
+    lg_j, jcache = jax.jit(jpg.prefill, static_argnums=(1, 5))(
+        params, cfg_j, jnp.asarray(ids), jnp.asarray(pix), jcache, False)
+    cache = tgen.make_cache(model, 1, t, 4, tdtype)
+    lg_t, cache = tgen.prefill(model, torch.from_numpy(ids), torch.from_numpy(pix), cache)
+    assert cache.length.dtype == torch.int32 and cache.length.dim() == 0
+    assert int(cache.length) == int(jcache.length) == t == cache.host_length
+    assert cache.valid.tolist() == [t]
+    first = jnp.argmax(lg_j[:, -1], -1).astype(jnp.int32)[:, None]
+    toks_j, _, jcache = jgen.decode_steps(params, cfg_j, first, jcache, jax.random.PRNGKey(0), 3)
+    toks_t, _, cache = tgen.decode_steps(model, torch.from_numpy(np.array(first)), cache, 3)
+    assert int(cache.length) == int(jcache.length) == t + 3 == cache.host_length
+    assert cache.valid.tolist() == [t + 3]
+    assert toks_t.tolist() == np.asarray(toks_j).tolist()
+    with pytest.raises(ValueError, match="cache full"):
+        tgen.decode_steps(model, toks_t[:, -1:], cache, 2)
+
+
+@pytest.mark.parametrize("with_eos", [False, True])
+@pytest.mark.parametrize("max_new", [8, 9])  # 7 and 8 decode steps: the last chunk of 3 ragged
+@pytest.mark.parametrize("kv", list(CACHES))
+def test_generate_chunked_matches_jax(varied, kv, max_new, with_eos):
+    cfg_j, params, model, pt, eos_in_stream = varied
+    jdtype, tdtype = CACHES[kv]
+    eos = eos_in_stream if with_eos else -1
+    ids, pix = _inputs(pt)
+    ref = jgen.generate_chunked(params, cfg_j, jnp.asarray(ids), jnp.asarray(pix), max_new, eos,
+                                cache_dtype=jdtype, chunk=3)
+    ref_gen, _ = jgen.generate(params, cfg_j, jnp.asarray(ids), jnp.asarray(pix), max_new, eos,
+                               cache_dtype=jdtype)
+    ids_t, pix_t = torch.from_numpy(ids), torch.from_numpy(pix)
+    pieces = list(tgen.generate_chunked_stream(model, ids_t, pix_t, max_new, eos, cache_dtype=tdtype,
+                                               chunk=3))
+    got, _ = tgen.generate(model, ids_t, pix_t, max_new, eos, cache_dtype=tdtype)
+    assert sum(pieces, []) == tgen.generate_chunked(model, ids_t, pix_t, max_new, eos,
+                                                    cache_dtype=tdtype, chunk=3)
+    assert sum(pieces, []) == ref == ref_gen == got
+    assert len(pieces[0]) == 1 and all(1 <= len(p) <= 3 for p in pieces[1:])
+    if with_eos:  # stopped at the EOS inside the stream
+        assert got[-1] == eos and len(got) < max_new
+    else:
+        assert len(got) == max_new
+
+
+@pytest.mark.parametrize("with_eos", [False, True])
+@pytest.mark.parametrize("kv", list(CACHES))
+def test_generate_scan_matches_jax(varied, kv, with_eos):
+    """Batch 2 (request 0's prompt with two images): with the EOS of row
+    0's stream, row 0 stops early and its later tokens are frozen to EOS."""
+    cfg_j, params, model, pt, eos_in_stream = varied
+    jdtype, tdtype = CACHES[kv]
+    eos = eos_in_stream if with_eos else -1
+    images = _images()
+    inputs = pt([PROMPTS[0]] * 2, [images[0], images[1]])
+    ids, pix = inputs["input_ids"], inputs["pixel_values"]
+    max_new = 8
+    jcache = jgen.make_cache(cfg_j, 2, ids.shape[1], max_new, jdtype)
+    ref = jgen.generate_scan(params, cfg_j, jnp.asarray(ids), jnp.asarray(pix), jcache,
+                             jax.random.PRNGKey(0), max_new, eos)
+    got = tgen.generate_scan(model, torch.from_numpy(ids), torch.from_numpy(pix), max_new, eos,
+                             cache_dtype=tdtype)
+    assert isinstance(got, tgen.GenerationResult)
+    assert got.tokens.dtype == torch.int32 and got.num_valid.dtype == torch.int32
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_array_equal(got.num_valid.numpy(), np.asarray(ref.num_valid))
+    if with_eos:  # row 0 froze after its EOS; unfrozen, it goes on with other tokens
+        n0 = int(got.num_valid[0])
+        assert n0 < max_new and (got.tokens[0, n0 - 1:] == eos).all()
+        free = tgen.generate_scan(model, torch.from_numpy(ids), torch.from_numpy(pix), max_new, -1,
+                                  cache_dtype=tdtype)
+        assert (free.tokens[0, n0:] != eos).all()
+    else:
+        assert got.num_valid.tolist() == [max_new, max_new]
+
+
+def test_sampled_generation_repeats_with_its_seed(varied):
+    """One seed gives one stream, through every path (each draws once a
+    token from the generator); another seed another; temperature 0 under
+    do_sample is greedy."""
+    _, _, model, pt, _ = varied
+    ids, pix = map(torch.from_numpy, _inputs(pt))
+    vocab = model.cfg.text_config.vocab_size
+
+    def run(path, seed, **kw):
+        gen = torch.Generator().manual_seed(seed)
+        kw = dict(do_sample=True, temperature=0.8, top_p=0.9, generator=gen, **kw)
+        if path == "generate":
+            return tgen.generate(model, ids, pix, 10, -1, **kw)[0]
+        if path == "chunked":
+            return tgen.generate_chunked(model, ids, pix, 10, -1, chunk=3, **kw)
+        return tgen.generate_scan(model, ids, pix, 10, -1, **kw).tokens[0].tolist()
+
+    a = run("generate", 7)
+    assert a == run("generate", 7) == run("chunked", 7) == run("scan", 7)
+    assert a != run("generate", 8)
+    assert all(0 <= x < vocab for x in a)
+    greedy, _ = tgen.generate(model, ids, pix, 10, -1)
+    assert run("generate", 7, stop_at_eos=False) == a
+    sampled_t0, _ = tgen.generate(model, ids, pix, 10, -1, do_sample=True, temperature=0.0,
+                                  generator=torch.Generator().manual_seed(7))
+    assert sampled_t0 == greedy
+
+
+def test_pooled_cache_is_reused_once_dropped(setup):
+    """The pool hands out a dropped cache's buffers again (with what was
+    captured on them), never those of a cache a caller still holds."""
+    _, _, _, _, model, pt = setup
+    ids, pix = map(torch.from_numpy, _inputs(pt, 2))
+    _, first = tgen.generate(model, ids, pix, 5, -1)
+    ptr, graphs = first.k.data_ptr(), first.graphs
+    assert len(graphs) == 1
+    _, held = tgen.generate(model, ids, pix, 5, -1)
+    assert held.k.data_ptr() != ptr  # ``first`` is still held
+    del first
+    toks, again = tgen.generate(model, ids, pix, 5, -1)
+    assert again.k.data_ptr() == ptr and again.graphs is graphs and len(graphs) == 1
+    assert int(again.length) == again.host_length == ids.shape[1] + 4
+    assert toks == tgen.generate(model, ids, pix, 5, -1)[0]
+
+
+def test_pooled_caches_share_length_buckets_and_stay_bounded(setup):
+    """A pooled cache's length is rounded up to whole steps, so requests of
+    nearby lengths get one shape (and, once dropped, one cache and its
+    graphs); the pool keeps the ``POOL_SLOTS`` caches handed out last."""
+    _, _, _, _, model, _ = setup
+    step = tgen.CACHE_LENGTH_STEP
+    a = tgen._pooled_cache(model, 1, step + 1, 2, None)
+    assert a.max_len == 2 * step
+    ptr = a.k.data_ptr()
+    del a
+    b = tgen._pooled_cache(model, 1, step + 3, step - 3, None)
+    assert b.max_len == 2 * step and b.k.data_ptr() == ptr
+    held = [tgen._pooled_cache(model, 2, 1, step * k, None) for k in range(1, tgen.POOL_SLOTS + 3)]
+    assert [c.max_len for c in held] == [step * (k + 1) for k in range(1, tgen.POOL_SLOTS + 3)]
+    slots = tgen._CACHE_POOL[model]
+    assert [s[1].k.data_ptr() for s in slots] == [c.k.data_ptr() for c in held[-tgen.POOL_SLOTS:]]
+    assert b.k.data_ptr() == ptr and int(b.length) == 0  # dropped from the pool, still its holder's
+
+
+def test_memory_probes_and_tree_bytes(setup):
+    _, _, _, _, model, _ = setup
+    n_model = sum(t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+    assert memory.tree_bytes(model) == n_model
+    cache = tgen.make_cache(model, 2, 5, 3)
+    k = cache.k.numel() * cache.k.element_size()
+    assert memory.tree_bytes(cache) == 2 * k + 4 + 2 * 4  # k, v, the length, two valid rows
+    q8 = tgen.make_cache(model, 2, 5, 3, torch.int8)
+    assert memory.tree_bytes(q8) == 2 * q8.k.numel() + 2 * 4 * q8.k_scale.numel() + 12  # + fp32 scales
+    assert memory.tree_bytes({"a": [cache.k, (cache.v, 3)], "b": None}) == 2 * k
+    assert memory.estimate_live_mb(model, cache) == (n_model + 2 * k + 12) / 2**20
+    assert memory.device_memory_stats("cpu") == {}
+    assert memory.bytes_in_use("cpu") == memory.peak_bytes_in_use("cpu") == 0
+    assert memory.peak_memory_mb("cpu") == 0.0
+
+
+def test_profiling_timed_trace_and_annotate(tmp_path):
+    x = torch.arange(6.0)
+    out, seconds = profiling.timed(lambda: x * 2, device="cpu")
+    assert torch.equal(out, x * 2) and seconds >= 0.0
+    profiling.fence([x, {"y": x}])  # CPU tensors: nothing to wait for
+    with profiling.trace(str(tmp_path), device="cpu"):
+        with profiling.annotate("pg_decode_region"):
+            (x * 3).sum()
+    assert "pg_decode_region" in (tmp_path / "trace.json").read_text()

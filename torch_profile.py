@@ -9,12 +9,15 @@ serving arm (the bf16 model, and each of chip_smoke's ``QUANT_ARMS``: the
 model quantized on the card by ``quantization.quantize_params``, with the
 arm's cache), after a warm-up:
 
-- host-clock ms of one ``generation.prefill`` and ms/token of one
-  ``generation.decode_steps`` chunk of ``STEPS`` tokens, unprofiled;
-- the same two calls under ``torch.profiler`` (CUPTI): device time = the sum
-  of the CUDA kernels' own time, by kernel name and by group (the port's
-  kernels, cuBLAS, PyTorch's elementwise and reductions), per prefill and per
-  decode token, with the launches of each. A trace that holds fewer records
+- host-clock ms of one ``generation.prefill`` and ms/token of one eager
+  decode chunk of ``STEPS`` tokens (``chip_smoke.eager_chunk``: the decode
+  step issued launch by launch), unprofiled; and ms/token of the same chunk
+  through ``generation.decode_steps`` (replays of the captured CUDA graph);
+- the prefill, the eager chunk and the graph chunk (captured before the
+  profile) under ``torch.profiler`` (CUPTI): device time = the sum of the
+  CUDA kernels' own time, by kernel name and by group (the port's kernels,
+  cuBLAS, PyTorch's elementwise and reductions), per prefill and per decode
+  token, with the launches of each. A trace that holds fewer records
   of a port kernel than its wrapper's launch count says were launched has
   lost records: the call is profiled again, up to ``TRIES`` times, and the
   arm's ``records`` entry keeps the tries and what the last trace lacked.
@@ -33,19 +36,13 @@ import sys
 import time
 from pathlib import Path
 
+from chip_smoke import KERNEL_SYMBOLS
+
 STEPS = 15  # decode tokens per profiled chunk
 TRIES = 3  # profiles of a call whose trace lost kernel records
-# Kernel-name substrings of each group, first match wins.
-GROUPS = [
-    ("q4_matmul", ("Int4Rows",)),
-    ("q8_matmul", ("Int8Rows",)),
-    ("w4a8_gemv", ("w4a8_gemv_kernel",)),
-    ("w4a8_geglu", ("w4a8_geglu_kernel",)),
-    ("quant_rows", ("quant_rows_kernel",)),
-    ("flash_attention", ("flash_attention_kernel",)),
-    ("decode_attention", ("decode_",)),
-    ("cublas", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")),
-]
+# Kernel-name substrings of each group, first match wins: the port's
+# kernels, then cuBLAS.
+GROUPS = [*KERNEL_SYMBOLS, ("cublas", ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK"))]
 
 
 def group_of(name: str) -> str:
@@ -141,8 +138,14 @@ def main() -> int:
     for arm, qargs, kv_int8 in [("bf16", None, False)] + chip_smoke.QUANT_ARMS:
         m = model if qargs is None else quantization.quantize_params(model, **qargs)
         cache_dtype = torch.int8 if kv_int8 else None
+        def eager(tok, cache):
+            return chip_smoke.eager_chunk(torch, m, tok, cache, n)[0].tolist()
+
+        def graph(tok, cache):
+            return generation.decode_steps(m, tok, cache, n)[0].tolist()
+
         tok0, cache = prefill(m, cache_dtype)  # warm-up
-        generation.decode_steps(m, tok0, cache, 3)
+        eager(tok0, cache)
         torch.cuda.synchronize()
 
         t0 = time.perf_counter()
@@ -150,29 +153,46 @@ def main() -> int:
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        toks, _, _ = generation.decode_steps(m, tok0, cache, n)
-        toks.tolist()
+        eager(tok0, cache)
         decode_ms = (time.perf_counter() - t0) * 1e3 / n
+        tok0, cache = prefill(m, cache_dtype)
+        capture_ms = generation.prepare_decode(m, cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph(tok0, cache)
+        graph_ms = (time.perf_counter() - t0) * 1e3 / n
 
         kern_p, tries_p, missing_p = profiled(torch, lambda _: prefill(m, cache_dtype))
         kern_d, tries_d, missing_d = profiled(  # each try on a fresh cache
-            torch, lambda pre: generation.decode_steps(m, *pre, n)[0].tolist(),
-            lambda: prefill(m, cache_dtype))
+            torch, lambda pre: eager(*pre), lambda: prefill(m, cache_dtype))
+
+        def captured():
+            tok, cache = prefill(m, cache_dtype)
+            generation.prepare_decode(m, cache)
+            return tok, cache
+
+        kern_g, tries_g, missing_g = profiled(torch, lambda pre: graph(*pre), captured)
         rec = {
             "prefill_host_ms": prefill_ms, "decode_host_ms_per_token": decode_ms,
+            "graph_decode_host_ms_per_token": graph_ms, "graph_capture_ms": capture_ms,
             "prefill": summarize(kern_p, 1),
             "decode_per_token": summarize(kern_d, n),
+            "graph_decode_per_token": summarize(kern_g, n),
             "records": {"prefill": {"tries": tries_p, "missing": missing_p},
-                        "decode": {"tries": tries_d, "missing": missing_d}},
+                        "decode": {"tries": tries_d, "missing": missing_d},
+                        "graph_decode": {"tries": tries_g, "missing": missing_g}},
         }
         rec["prefill"]["busy_share_of_host_ms"] = rec["prefill"]["device_ms"] / prefill_ms
         rec["decode_per_token"]["busy_share_of_host_ms"] = rec["decode_per_token"]["device_ms"] / decode_ms
+        rec["graph_decode_per_token"]["busy_share_of_host_ms"] = rec["graph_decode_per_token"]["device_ms"] / graph_ms
         result["arms"][arm] = rec
-        for phase, host in (("prefill", prefill_ms), ("decode_per_token", decode_ms)):
+        for phase, host in (("prefill", prefill_ms), ("decode_per_token", decode_ms),
+                            ("graph_decode_per_token", graph_ms)):
             s = rec[phase]
             groups = " ".join(f"{k} {v['device_ms']:.4f} ({v['launches']:.0f})" for k, v in s["groups"].items())
             print(f"[{arm}] {phase}: host {host:.3f} ms | device {s['device_ms']:.4f} ms, "
                   f"{s['launches']:.0f} launches | {groups}", flush=True)
+        print(f"[{arm}] graph_decode_per_token: captured in {capture_ms:.2f} ms", flush=True)
         if m is not model:
             del m
             torch.cuda.empty_cache()
