@@ -17,9 +17,13 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    129, whole kv tiles masked, head_dim 8 and 256, GQA 8:1 with a window); decode
    attention at the cluster's edges (S = 1, 17, the main path's 308, one
    past each cluster size the host picks, 4128 with one visible position,
-   blocks with no visible position under a poisoned tail) and over an int8
-   cache at S = 308, 1100 and 4128 with a poisoned tail, bit-identical to
-   the bf16 kernel over the dequantized cache. The quant kernels
+   blocks with no visible position under a poisoned tail, the longest
+   cache its shared memory holds) and over an int8 cache at S = 308, 1100
+   and 4128 with a poisoned tail, bit-identical to the bf16 kernel over the
+   dequantized cache; one q and one set of visible rows (292, then 1000)
+   poisoned past them in caches of each length from 308 (1024) to 4128
+   give one output bit for bit, bf16 and int8 cache; a 30000-position
+   cache raises ValueError before any launch. The quant kernels
    (q8_matmul, q4_matmul, w4a8_gemv, w4a8_geglu, quant_rows and the
    mlp_w4a8 they make up) at every decode shape of the 3B model, at 64 and
    276 rows, at the flat q4a8_matmul shapes, at ragged rows and widths, at
@@ -36,9 +40,11 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
 4. Main path at full width: PaliGemma-3B-224 in bf16 with seeded random
    weights made on the card, the byte-tokenizer processor, and three
    requests answered by ``generation.generate`` (32 new tokens each; one
-   replay of the captured decode step a token, after one untimed request of
-   each shape), with the kernels' launch counts, prefill ms and decode
-   ms/token per request; then the first request's decode again as one
+   replay of the prefill graph of the request's shape, then one replay of
+   the captured decode step a token, after one untimed request of each
+   shape, which captures both), with the kernels' launch counts, prefill
+   ms (a replayed prefill, to the first token) and decode ms/token per
+   request; then the first request's decode again as one
    ``decode_steps`` chunk, which must give the same tokens; and the peak
    device memory. Then the
    model is quantized on the card in each serving arm (``QUANT_ARMS``: int8,
@@ -71,11 +77,27 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    must equal the launches its replays added; ``generate_chunked`` (chunk
    8) and ``generate_scan`` must give ``generate``'s tokens, greedy and
    sampled, with no EOS and with an EOS inside the stream (trimmed, and
-   frozen in the scan). Then sampled decode through the graph
+   frozen in the scan), each with its prefill a replay of its graph. Then
+   sampled decode through the graph
    (bf16, temperature 0.8, top_p 0.9): one seed repeats its stream (also
    through ``generate_chunked``), another seed differs, every id is in the
    vocab, and temperature 0 is greedy; and the phase's peak memory
    (``utils.memory.peak_memory_mb``).
+8. Prefill as a CUDA graph (run after phase 5, before phase 7 and the
+   timing; ``phase_prefill_graph``): in bf16 and in each quantized arm,
+   request 0, on caches of ``generate``'s shape: the first call of the
+   shape (the eager prefill as the capture's warm-up) and three replays
+   must equal the eager prefill (``models/paligemma.prefill`` launched
+   from Python) bit for bit: last-position logits, first token, the K/V
+   rows (and the int8 cache's scales), length and valid. Each replay's
+   launches (and int8 x int8 calls) equal ``_expected_launches(cfg,
+   qargs, T, 0)``, and one replay under torch.profiler holds each port
+   kernel's CUPTI records to the launches it added. Reported: graph and
+   eager prefill host ms (to the first token's read) and device-event ms,
+   best of 3; the first call's host ms and the capture ms (warm-up
+   included); ``prepare_prefill``'s ms; the device memory one graph holds
+   (its pool, released when it goes; and ``memory_allocated`` after its
+   capture).
 
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +105,7 @@ The second-to-last line is the JSON kernel table; the last line is
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import json
 import math
@@ -171,6 +194,10 @@ FLASH_CASES = [
     ("GQA 8:1 valid=200 window=[230,250) D=256", (1, 276, 8, 1, 256),
      {"valid_len": 200, "gen_start": 230, "gen_end": 250}, None),
 ]
+# Decode attention over one set of visible rows in caches of each length
+# (phase 3): valid, the cache lengths (clusters of 8 and 16 blocks, one and
+# more tiles a block).
+DECODE_LENGTH_CASES = [(292, (308, 320, 384, 512, 1100, 4128)), (1000, (1024, 1100, 4128))]
 # The q8/q4 GEMV's edge cases (phase 3): rows of x, output rows, depth.
 GEMV_EDGE_ROWS = (1, 2, 3, 8, 9, 33, 64)
 GEMV_EDGE_OUT = (200, 201, 2560)
@@ -285,6 +312,9 @@ def phase_kernels(torch):
         ("cluster edge S=513", (1, 513, 8, 1, 256), [513], {}, None),
         ("S=4128 valid=1 + poison", (1, 4128, 8, 1, 256), [1], {}, 1),
         ("masked blocks + poison valid=40 of 1100", (1, 1100, 8, 1, 256), [40], {}, 40),
+        # The longest cache the kernel's shared memory holds.
+        (f"longest S={ca.decode_max_len(8, 256)} + poison", (1, ca.decode_max_len(8, 256), 8, 1, 256),
+         [ca.decode_max_len(8, 256) - 5], {}, ca.decode_max_len(8, 256) - 5),
     ]
     for name, (b, s, h, hkv, d), valid, kw, poison in decode_cases:
         kc = _rand(torch, gen, (3, b, s, hkv, d), dev)[1]  # a layer of a stacked cache
@@ -318,6 +348,48 @@ def phase_kernels(torch):
             f"| poisoned tail unchanged: {same_poisoned}")
         check(ok and same_as_bf16 and same_poisoned, f"int8-cache decode S={s_len}: kernel disagrees")
         max_err["decode_attention"] = max(max_err["decode_attention"], err)
+
+    # The result depends on the visible rows, never on the buffer's length:
+    # one q and one set of visible rows, poisoned past them, in caches of
+    # each length give one output bit for bit, bf16 and int8 cache.
+    for valid, lengths in DECODE_LENGTH_CASES:
+        q = _rand(torch, gen, (1, 1, 8, 256), dev)
+        rows = [_rand(torch, gen, (1, valid, 1, 256), dev) for _ in range(2)]
+        vt = torch.tensor([valid], dtype=torch.int32, device=dev)
+        for kv in ("bf16", "int8"):
+            outs, worst, all_ok = [], 0.0, True
+            for s_len in lengths:
+                k, v = (torch.full((3, 1, s_len, 1, 256), 1e4, dtype=torch.bfloat16, device=dev) for _ in range(2))
+                k[1, :, :valid], v[1, :, :valid] = rows
+                kw = dict(scale=256**-0.5)
+                if kv == "int8":
+                    (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+                    kw.update(k_scale=ks[1], v_scale=vs[1])
+                outs.append(ca.decode_attention(q, k[1], v[1], vt, **kw))  # a layer of a stacked cache
+                err, ok = _close(torch, outs[-1], ca.decode_attention_plain(q, k[1], v[1], vt, **kw))
+                worst, all_ok = max(worst, err), all_ok and ok
+            torch.cuda.synchronize()
+            same = all(torch.equal(out, outs[0]) for out in outs[1:])
+            log(f"[kernel] {'decode_attention':16s} {f'{kv} cache valid={valid} poisoned past it, S in {lengths}':60s} "
+                f"max_abs_err {worst:.3e} | bit-identical at every S: {same}")
+            check(all_ok and same, f"{kv}-cache decode valid={valid}: the output depends on the cache length")
+            max_err["decode_attention"] = max(max_err["decode_attention"], worst)
+
+    # A cache longer than the kernel's shared memory holds raises on the
+    # host, before any launch.
+    s_len = 30000
+    kc, vc = _rand(torch, gen, (1, s_len, 1, 256), dev), _rand(torch, gen, (1, s_len, 1, 256), dev)
+    before = ca.launch_counts()["decode_attention"]
+    try:
+        ca.decode_attention(_rand(torch, gen, (1, 1, 8, 256), dev), kc, vc,
+                            torch.tensor([s_len], dtype=torch.int32, device=dev))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    launched = ca.launch_counts()["decode_attention"] - before
+    log(f"[kernel] {'decode_attention':16s} S={s_len} raises ValueError before any launch "
+        f"({launched} launches): {raised!r}")
+    check(raised is not None and launched == 0, f"decode S={s_len}: no ValueError before the launch")
     return max_err
 
 
@@ -1068,8 +1140,9 @@ def phase_main_path(torch, model, proc, tok, cfg, main_counts):
         text = tok.decode(toks)
         log(f"[request {i}] prompt_len {ids.shape[1]} | {len(toks)} tokens | text {text!r}")
         log(f"[request {i}] launches flash {flash} (expect {n_layers_vis + n_layers_llm}) "
-            f"decode {decode} (expect {n_layers_llm} x {n_dec}) | prefill {prefill_ms:.2f} ms | "
-            f"decode {decode_ms:.3f} ms/token (host clock, per-token sync)")
+            f"decode {decode} (expect {n_layers_llm} x {n_dec}) | prefill {prefill_ms:.2f} ms (a replay of "
+            f"the prefill graph, to the first token) | decode {decode_ms:.3f} ms/token (host clock, "
+            f"per-token sync)")
         check(all(0 <= t < cfg.text_config.vocab_size for t in toks), "token id out of range")
         check(cache.length == ids.shape[1] + n_dec, "cache length does not match the tokens")
         check(flash == n_layers_vis + n_layers_llm, f"flash launches {flash} per prefill")
@@ -1139,8 +1212,8 @@ def phase_quant_arm(torch, model, proc, tok, cfg, arm, bf16_rec, main_counts):
         f"cache {type(cache).__name__} {cache.k.dtype}")
     log(f"[{name}] launches {dict(counts)} | expected {dict(want)} | a8_matmul calls "
         f"{counts['a8_matmul']} (torch._int_mm, not a kernel of the port)")
-    log(f"[{name}] prefill {prefill_ms:.2f} ms | decode {decode_ms:.3f} ms/token (host clock, per-token "
-        f"sync) | peak {peak:.3f} GiB (the bf16 model stays resident) | greedy tokens equal to the "
+    log(f"[{name}] prefill {prefill_ms:.2f} ms (a replay of the prefill graph, to the first token) | "
+        f"decode {decode_ms:.3f} ms/token (host clock, per-token sync) | peak {peak:.3f} GiB (the bf16 model stays resident) | greedy tokens equal to the "
         f"bf16 arm's: {agree}/{min(len(toks), len(bf16_rec['tokens']))} (reported, not gated: random "
         "weights)")
     check(all(0 <= t < cfg.text_config.vocab_size for t in toks), "token id out of range")
@@ -1484,6 +1557,154 @@ def _phase_graph(torch, model, cfg, rec, main_counts):
     return arms
 
 
+def _cache_tensors(cache):
+    """{field: tensor} of a cache: K/V (and the int8 cache's scales), the
+    device length and the valid lengths."""
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if hasattr(getattr(cache, f.name), "data_ptr")}
+
+
+def _prefill_times(torch, run):
+    """((logits, cache), first token, host ms, device-event ms) of
+    ``run()``, which queues a prefill: the host clock runs to the read of
+    the first greedy token, the CUDA events bracket the queued work."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = run()
+    end.record()
+    first = int(out[0][0, -1].argmax())
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return out, first, host_ms, start.elapsed_time(end)
+
+
+def _prefill_arm(torch, model, cfg, name, qargs, cache_dtype, rec, main_counts):
+    """One arm of the prefill-graph phase on request 0: the graph prefill
+    (first call, then replays) against the eager prefill, bit for bit, with
+    launch counts, CUPTI records, times and the memory of one graph;
+    returns the arm's record."""
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.models import gemma, paligemma
+    from paligemma_tpu_torch.ops import kernels
+
+    ids, pix = rec["ids"], rec["pix"]
+    t = ids.shape[1]
+    want = _expected_launches(cfg, qargs, t, 0)
+
+    def fresh():  # generate's cache shape for the request
+        return generation.make_cache(model, 1, t, rec["cache_len"] - t, cache_dtype)
+
+    # The eager prefill (models/paligemma.prefill launched from Python): the
+    # bits every graph prefill below must give, and its host ms (best of 3).
+    eager = fresh()
+    (ref_logits, eager), ref_first, _, _ = _prefill_times(
+        torch, lambda: paligemma.prefill(model, ids, pix, eager, full_logits=False))
+    ref = {k: v.clone() for k, v in _cache_tensors(eager).items()}
+
+    def same(logits, first, cache):
+        got = _cache_tensors(cache)
+        return (torch.equal(logits, ref_logits) and first == ref_first and cache.host_length == t
+                and all(torch.equal(got[k], ref[k]) for k in ref))
+
+    eager_times = []
+    for _ in range(3):
+        c = gemma.reset_cache(eager)
+        (logits, c), first, host, dev = _prefill_times(
+            torch, lambda: paligemma.prefill(model, ids, pix, c, full_logits=False))
+        check(same(logits, first, c), f"[prefill {name}] the eager prefill is not deterministic")
+        eager_times.append((host, dev))
+
+    # The first call of the shape: the eager prefill on a side stream (the
+    # capture's warm-up, this call's answer), then the capture.
+    cache = fresh()
+    (logits, cache), first, first_ms, _ = _prefill_times(torch, lambda: generation.prefill(model, ids, pix, cache))
+    runners = [r for key, r in cache.graphs.items() if key[0] == "prefill"]
+    check(len(runners) == 1 and runners[0].graph is not None, f"[prefill {name}] no prefill graph captured")
+    capture_ms = runners[0].capture_ms
+    check(same(logits, first, cache), f"[prefill {name}] the first call differs from the eager prefill")
+
+    # Replays: each gives the eager bits and the code's launches; the counts
+    # are set to 0 just before and read just after.
+    kernels.reset_launch_counts()
+    graph_times = []
+    for _ in range(3):
+        cache = gemma.reset_cache(cache)
+        before = kernels.call_counts()
+        (logits, cache), first, host, dev = _prefill_times(torch, lambda: generation.prefill(model, ids, pix, cache))
+        counts = {k: v - before[k] for k, v in kernels.call_counts().items()}
+        check(same(logits, first, cache), f"[prefill {name}] a replay differs from the eager prefill")
+        check(all(counts.get(k, 0) == want[k] for k in set(counts) | set(want)),
+              f"[prefill {name}] a replay's launches {counts} differ from the code's {dict(want)}")
+        graph_times.append((host, dev))
+    main_counts.update(kernels.call_counts())
+
+    # One replay under torch.profiler: its CUPTI kernel records against the
+    # launches it added.
+    gained, traced, tries = _traced_launches(
+        torch, lambda: gemma.reset_cache(cache), lambda c: int(generation.prefill(model, ids, pix, c)[0].argmax()))
+    check(gained == traced == {k: v for k, v in want.items() if v and k != "a8_matmul"},
+          f"[prefill {name}] the traced replay's kernel records {traced} differ from the launches it added "
+          f"{gained} or the code's {dict(want)}")
+
+    # The device memory one graph holds: its pool, released when the graph
+    # goes; prepare_prefill captures ahead and leaves the cache empty.
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    c = fresh()
+    alloc0 = torch.cuda.memory_allocated()
+    prepare_ms = generation.prepare_prefill(model, c, ids.shape, pix.shape)
+    torch.cuda.synchronize()
+    alloc1 = torch.cuda.memory_allocated()
+    check(c.host_length == 0 and not any(bool(x.any()) for x in _cache_tensors(c).values()),
+          f"[prefill {name}] prepare_prefill left the cache written")
+    (logits, c), first, _, _ = _prefill_times(torch, lambda: generation.prefill(model, ids, pix, c))
+    check(same(logits, first, c), f"[prefill {name}] a replay after prepare_prefill differs")
+    del logits
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved()
+    c.graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool_mib = (reserved1 - torch.cuda.memory_reserved()) / 2**20
+
+    host_g, dev_g = (min(x[i] for x in graph_times) for i in (0, 1))
+    host_e, dev_e = (min(x[i] for x in eager_times) for i in (0, 1))
+    log(f"[prefill {name}] prompt_len {t} | graph == eager prefill bit for bit (logits, first token "
+        f"{ref_first}, K/V rows, length, valid) on the first call and 3 replays | launches a replay "
+        f"{dict((k, v) for k, v in want.items() if v)} = expected | CUPTI records of one replay (trace {tries} of "
+        f"{TRACE_TRIES}) {traced}")
+    log(f"[prefill {name}] ms (best of 3; host clock to the first token's read, device events): graph host "
+        f"{host_g:.3f} device-event {dev_g:.3f} | eager host {host_e:.3f} device-event {dev_e:.3f} | first call "
+        f"of the shape {first_ms:.2f} (capture {capture_ms:.2f}, warm-up prefill included; prepare_prefill "
+        f"{prepare_ms:.2f}) | one graph holds {pool_mib:.1f} MiB of pool (memory_allocated +"
+        f"{(alloc1 - alloc0) / 2**20:.2f} MiB after its capture)")
+    return {"arm": name, "prompt_len": t, "graph_host_ms": host_g, "graph_device_event_ms": dev_g,
+            "eager_host_ms": host_e, "eager_device_event_ms": dev_e, "first_call_ms": first_ms,
+            "capture_ms": capture_ms, "prepare_prefill_ms": prepare_ms, "graph_pool_mib": pool_mib,
+            "graph_allocated_mib": (alloc1 - alloc0) / 2**20,
+            "times": {"graph": graph_times, "eager": eager_times}}
+
+
+def phase_prefill_graph(torch, model, cfg, rec, main_counts):
+    """The prefill as a CUDA graph, in bf16 and in each quantized arm
+    (request 0); returns the arms' records."""
+    from paligemma_tpu_torch import quantization
+
+    arms = [_prefill_arm(torch, model, cfg, "bf16", None, None, rec, main_counts)]
+    for name, qargs, kv_int8 in QUANT_ARMS:
+        qmodel = quantization.quantize_params(model, llm_only=True, **qargs)
+        arms.append(_prefill_arm(torch, qmodel, cfg, name, qargs, torch.int8 if kv_int8 else None, rec,
+                                 main_counts))
+        del qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[prefill] {json.dumps(arms)}")
+    return arms
+
+
 KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
@@ -1520,6 +1741,7 @@ def main() -> int:
     phase_plain_path(torch, model, records[0], tok)
     arms = [phase_quant_arm(torch, model, proc, tok, cfg, arm, records[0], main_counts) for arm in QUANT_ARMS]
     log(f"[arms] {json.dumps(arms)}")
+    phase_prefill_graph(torch, model, cfg, records[0], main_counts)
     phase_graph(torch, model, cfg, records[0], main_counts)
     times = phase_timing(torch, records[0]["ids"].shape[1])
 

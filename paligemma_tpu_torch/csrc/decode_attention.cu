@@ -31,16 +31,24 @@
 // design splits S over the blocks of a thread-block cluster, and the whole
 // call is one launch:
 //   - one cluster per (batch row, kv head), of C blocks (the host picks
-//     the smallest power of two with 64 C >= S, at most 16: 8 at S = 308);
-//     block r takes the positions [r per, (r + 1) per), per = ceil(S / C),
-//     in tiles of up to 64 rows.
+//     the smallest power of two with 64 C >= S, at most 16: 8 at S = 308).
+//     The cache is cut into 64-row tiles by position, tile i holding the
+//     positions [64 i, 64 i + 64), and tile i belongs to block i mod C,
+//     which takes its tiles in ascending order.
+//   - So the result depends on q, the visible rows, valid[b] and the
+//     window, never on S itself: up to S = 1024 every block holds at most
+//     one tile, tile i always in block i, and from there on C = 16 for
+//     every S. A tile with no visible position adds an exact zero to every
+//     sum (its l_j is 0 once the row max is real, its partial output 0),
+//     and V rows that are not visible are read as zeros, so a longer buffer
+//     only appends zeros to sums of a fixed order.
 //   - the K tiles and then the V tiles of a block stream through a 4-stage
 //     ring of bf16 tiles in shared memory: a bf16 cache by cp.async, issued
 //     before anything waits (V lands while the scores and the softmax
 //     statistics are formed); an int8 cache read into registers one tile
 //     ahead and dequantized into the ring by the block's 16 warps, each
-//     value as the reference reads it. K rows that are not visible are not
-//     read; a block with no visible position reads no K or V.
+//     value as the reference reads it. Rows that are not visible are not
+//     read (zeros in V); a tile with no visible position reads no K or V.
 //   - scores: S^T = K q^T on mma.sync m16n8k16 (tile rows the m side, the
 //     G = 8 query heads the n side), four k parts on four warps added in a
 //     fixed order, times the scale, NEG_INF where not visible. Each block
@@ -74,10 +82,9 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 64;      // cache rows a ring stage holds (at most)
-constexpr int kStages = 4;         // the ring of K and V tiles
-constexpr int kMaxCluster = 16;    // non-portable cluster size on the H100
-constexpr int kRowsPerBlock = 64;  // the cluster rule: 64 C >= S
+constexpr int kTileRows = 64;    // cache rows a tile (and a ring stage); the cluster rule: 64 C >= S
+constexpr int kStages = 4;       // the ring of K and V tiles
+constexpr int kMaxCluster = 16;  // non-portable cluster size on the H100
 
 struct DecodeParams {
   const bf16* q;
@@ -86,7 +93,7 @@ struct DecodeParams {
   bf16* o;
   const int* valid;  // (B,) or null (all S visible)
   int b, s, h, hkv, d;
-  int per, tile;     // cache positions a block, rows a tile (host)
+  int tiles;         // tiles of the block that holds the most (host)
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -109,32 +116,33 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w) {
 
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// The shared-memory layout of a block (host and device agree on it). All
-// offsets are in bytes and multiples of 16.
+// The shared-memory layout of a block (host and device agree on it, and
+// so does ops/cuda_attention.py::_decode_shared_bytes). All offsets are in
+// bytes and multiples of 16.
 struct Layout {
   int gp;      // query heads padded to the mma's n8 tile (G <= 8)
   int dp;      // head_dim padded to the k16 steps of the mma
   int qs;      // bf16 elements of a query row (dp + 8: rows 16 bytes apart in banks)
-  int pl;      // positions of the probability rows: `tiles` whole tiles
+  int pl;      // positions of the block's score and probability rows: `tiles` tiles
   int ps;      // bf16 elements of a probability row (pl + 8)
   int rs;      // bytes of a tile row (dp bf16 + 16 bytes: rows 16 bytes apart in banks)
-  int stage;   // bytes of a stage: tile rows
+  int stage;   // bytes of a stage: a tile
   int q, part, red, stats, scores, probs, ring, total;
 
-  __host__ __device__ Layout(int g, int d, int per, int tile) {
+  __host__ __device__ Layout(int g, int d, int tiles) {
     gp = 8;
     dp = round_up(d, 16);
     qs = dp + 8;
-    pl = round_up(per, tile);
+    pl = kTileRows * tiles;
     ps = pl + 8;
     rs = 2 * dp + 16;
-    stage = tile * rs;
+    stage = kTileRows * rs;
     q = 0;
     part = q + round_up(2 * gp * qs, 16);         // fp32 (G, D): the block's partial outputs
     red = part + round_up(4 * g * d, 16);         // fp32 (kWarps - 4, 4, 32): the upper k parts' score sums
     stats = red + 4 * (kWarps - 4) * 4 * 32;      // float2 (G): (m_j, l_j); float2 (G): the row's (m, l)
-    scores = stats + round_up(16 * g, 16);        // fp32 (G, per)
-    probs = scores + round_up(4 * g * per, 16);   // bf16 (gp, ps)
+    scores = stats + round_up(16 * g, 16);        // fp32 (G, pl)
+    probs = scores + round_up(4 * g * pl, 16);    // bf16 (gp, ps)
     ring = probs + round_up(2 * gp * ps, 16);
     total = ring + kStages * stage;
   }
@@ -145,14 +153,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   typedef typename std::conditional<KV8, int8_t, bf16>::type KvT;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char sm[];
-  const int g = p.h / p.hkv, d = p.d, per = p.per, tile = p.tile;
-  const Layout L(g, d, per, tile);
+  const int g = p.h / p.hkv, d = p.d;
+  const Layout L(g, d, p.tiles);
+  const int pl = L.pl;
   bf16* q_s = reinterpret_cast<bf16*>(sm + L.q);          // (gp, qs): the queries, zero-padded
   float* part_s = reinterpret_cast<float*>(sm + L.part);  // (G, D)
   float* red_s = reinterpret_cast<float*>(sm + L.red);    // the upper k half's score sums
   float2* st_s = reinterpret_cast<float2*>(sm + L.stats); // G: this block's (m_j, l_j)
   float2* row_s = st_s + g;                               // G: the row's (m, l)
-  float* s_s = reinterpret_cast<float*>(sm + L.scores);   // (G, per)
+  float* s_s = reinterpret_cast<float*>(sm + L.scores);   // (G, pl)
   bf16* p_s = reinterpret_cast<bf16*>(sm + L.probs);      // (gp, ps): probabilities in bf16
   unsigned char* ring = sm + L.ring;
   const unsigned ring_s = static_cast<unsigned>(__cvta_generic_to_shared(ring));
@@ -162,13 +171,24 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   const int gq = lane >> 2, t4 = lane & 3;  // the mma fragments' row and column group
 
   const int valid = p.valid ? p.valid[bi] : p.s;
-  const int c0 = min(rank * per, p.s), c1 = min(c0 + per, p.s), n = c1 - c0;
-  const int tiles = (n + tile - 1) / tile;
-  const bool any_visible = n > 0 && kv_range_visible(c0, c1, valid, p.win0, p.win1);
+  // The block's tiles: its t-th is tile rank + C t of the cache, positions
+  // [tile_c0(t), tile_c0(t) + tile_rows(t)); only the cache's last tile is
+  // cut by S, so the block's positions, local j = 64 t + row, are j < n.
+  const int n_tiles = (p.s + kTileRows - 1) / kTileRows;
+  const int tiles = rank < n_tiles ? (n_tiles - rank + n_ranks - 1) / n_ranks : 0;
+  auto tile_c0 = [&](int t) { return kTileRows * (rank + n_ranks * t); };
+  auto tile_rows = [&](int t) { return min(kTileRows, p.s - tile_c0(t)); };
+  const int n = tiles ? kTileRows * (tiles - 1) + tile_rows(tiles - 1) : 0;
+  auto tile_visible = [&](int t) {
+    return kv_range_visible(tile_c0(t), tile_c0(t) + tile_rows(t), valid, p.win0, p.win1);
+  };
   // A row with no visible position takes the mean of all V rows (the
-  // reference's softmax over NEG_INF scores): then every block reads V.
+  // reference's softmax over NEG_INF scores): then every V row is read.
   const bool row_masked = !kv_range_visible(0, p.s, valid, p.win0, p.win1);
-  const bool read_v = n > 0 && (any_visible || row_masked);
+  auto v_read = [&](int t) { return row_masked || tile_visible(t); };
+  auto row_read = [&](int c, bool is_k) {
+    return kv_visible(c, p.s, valid, p.win0, p.win1) || (!is_k && row_masked);
+  };
 
   // The ring's jobs: K tiles 0 .. tiles - 1, then V tiles 0 .. tiles - 1,
   // job j in stage j % kStages as bf16 rows. Thread (warp, lane) moves the
@@ -176,23 +196,26 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   // copied with cp.async, one commit group a job (empty where nothing is
   // read); an int8 cache is read into registers one job ahead and
   // dequantized into its stage by the threads. K rows that are not visible
-  // are not read (their scores are NEG_INF); V rows past the block's
-  // positions are zeros.
+  // are not read (their scores are NEG_INF); V rows that are not visible,
+  // or past S, are zeros.
   const KvT* kb = static_cast<const KvT*>(p.k) + bi * p.k_sb + hk * p.k_sh;
   const KvT* vb = static_cast<const KvT*>(p.v) + bi * p.v_sb + hk * p.v_sh;
   const float* ksb = KV8 ? p.k_scale + bi * p.ks_sb + hk * p.ks_sh : nullptr;
   const float* vsb = KV8 ? p.v_scale + bi * p.vs_sb + hk * p.vs_sh : nullptr;
-  auto reads = [&](int j) { return j < 2 * tiles && (j < tiles ? any_visible : read_v) && lane * 8 < d; };
+  auto reads = [&](int j) {
+    return j < 2 * tiles && (j < tiles ? tile_visible(j) : v_read(j - tiles)) && lane * 8 < d;
+  };
   auto issue = [&](int j) {  // bf16
     const bool is_k = j < tiles;
     if (reads(j)) {
       const long long rs = is_k ? p.k_ss : p.v_ss;
       const KvT* row0 = is_k ? kb : vb;
-      const int cw = c0 + (is_k ? j : j - tiles) * tile + warp;
+      const int t = is_k ? j : j - tiles, c1 = tile_c0(t) + tile_rows(t);
+      const int cw = tile_c0(t) + warp;
       const KvT* src = row0 + cw * rs + lane * 8;
       unsigned dst = ring_s + (j % kStages) * L.stage + warp * L.rs + lane * 16;
-      for (int c = cw; c < cw - warp + tile; c += kWarps) {
-        const bool in = c < c1 && (!is_k || kv_visible(c, p.s, valid, p.win0, p.win1));
+      for (int c = cw; c < cw - warp + kTileRows; c += kWarps) {
+        const bool in = c < c1 && row_read(c, is_k);
         if (in || !is_k) cp_async16(dst, in ? src : row0, in ? 16 : 0);
         src += kWarps * rs;
         dst += kWarps * L.rs;
@@ -206,11 +229,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   auto load = [&](int j) {  // int8: job j into registers
     const bool is_k = j < tiles, go = reads(j);
     const long long rs = is_k ? p.k_ss : p.v_ss, ss = is_k ? p.ks_ss : p.vs_ss;
-    const int cw = c0 + (is_k ? j : j - tiles) * tile + warp;
+    const int t = is_k ? j : j - tiles, c1 = tile_c0(t) + tile_rows(t);
+    const int cw = tile_c0(t) + warp;
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int c = cw + kWarps * i;
-      const bool in = go && warp + kWarps * i < tile && c < c1 && (!is_k || kv_visible(c, p.s, valid, p.win0, p.win1));
+      const bool in = go && c < c1 && row_read(c, is_k);
       raw[i] = in ? *reinterpret_cast<const uint2*>((is_k ? kb : vb) + c * rs + lane * 8) : make_uint2(0, 0);
       raw_scale[i] = in ? (is_k ? ksb : vsb)[c * ss] : 0.f;
     }
@@ -224,7 +248,6 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
 #pragma unroll
     for (int i = 0; i < kRowsPerThread; ++i) {
       const int r = warp + kWarps * i;
-      if (r >= tile) break;
       const bf162 sc = __bfloat162bfloat162(__float2bfloat16_rn(raw_scale[i]));
       uint32_t v[4] = {__byte_perm(raw[i].x, 0u, 0x4140), __byte_perm(raw[i].x, 0u, 0x4342),
                        __byte_perm(raw[i].y, 0u, 0x4140), __byte_perm(raw[i].y, 0u, 0x4342)};
@@ -256,9 +279,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   }
   if (L.dp != d) {
     const int pad = 2 * (L.dp - d);
-    for (int i = tid; i < kStages * tile * pad; i += kThreads) {
+    for (int i = tid; i < kStages * kTileRows * pad; i += kThreads) {
       const int r = i / pad, e = i % pad;
-      ring[(r / tile) * L.stage + (r % tile) * L.rs + 2 * d + e] = 0;
+      ring[(r / kTileRows) * L.stage + (r % kTileRows) * L.rs + 2 * d + e] = 0;
     }
   }
   if (KV8) {
@@ -287,7 +310,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   const int ksteps = L.dp / 16;
   for (int t = 0; t < tiles; ++t) {
     const unsigned kt = landed(t);
-    const int base = t * tile, rows = min(tile, n - base);
+    const int base = t * kTileRows, rows = tile_rows(t);
+    const bool visible = tile_visible(t);
     // Warp w takes rows 16 (w % 4) .. + 15 of the tile (at most 64 rows)
     // and the k part w / 4 of kParts; the upper parts' sums go through
     // red_s to part 0, which adds them in part order and stores the scores.
@@ -296,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
     const int k_per = (ksteps + kParts - 1) / kParts;
     const int k_lo = min(part * k_per, ksteps), k_hi = min(k_lo + k_per, ksteps);
     float acc[2][4] = {};
-    const bool active = r0 < rows && any_visible;
+    const bool active = r0 < rows && visible;
     if (active) {
       const int mi = lane >> 3, rr = r0 + (lane & 7) + 8 * (mi & 1);
       // Fragments of four k steps are loaded before their products; two
@@ -328,30 +352,31 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
       // acc: rows r0 + gq (+ 8), heads 2 t4 (+ 1).
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = r0 + gq + 8 * (e >> 1), hd = 2 * t4 + (e & 1), c = c0 + base + r;
+        const int r = r0 + gq + 8 * (e >> 1), hd = 2 * t4 + (e & 1), c = tile_c0(t) + r;
         float sum = acc[0][e] + acc[1][e];
 #pragma unroll
         for (int u = 1; u < kParts; ++u) sum += red_s[((warp + 4 * (u - 1)) * 4 + e) * 32 + lane];
         if (r < rows && hd < g)
-          s_s[hd * per + base + r] = kv_visible(c, p.s, valid, p.win0, p.win1) ? sum * p.scale : PG_NEG_INF;
+          s_s[hd * pl + base + r] = kv_visible(c, p.s, valid, p.win0, p.win1) ? sum * p.scale : PG_NEG_INF;
       }
     }
-    if (!any_visible) {
-      for (int i = tid; i < g * rows; i += kThreads) s_s[(i / rows) * per + base + i % rows] = PG_NEG_INF;
+    if (!visible) {
+      for (int i = tid; i < g * rows; i += kThreads) s_s[(i / rows) * pl + base + i % rows] = PG_NEG_INF;
     }
   }
   __syncthreads();  // s_s is complete
 
   // This block's statistics per query head. Every score is >= NEG_INF, so
   // a fully masked block gets max NEG_INF and a sum equal to its length, as
-  // a fully masked row does in the reference; a block with no positions
-  // gets (NEG_INF, 0).
+  // a fully masked row does in the reference (and weighs exp(NEG_INF - m)
+  // = 0 in a row with a visible position); a block with no positions gets
+  // (NEG_INF, 0).
   for (int gi = warp; gi < g; gi += kWarps) {
     float mx = PG_NEG_INF;
-    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, s_s[gi * per + j]);
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, s_s[gi * pl + j]);
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int j = lane; j < n; j += 32) sum += expf(s_s[gi * per + j] - mx);
+    for (int j = lane; j < n; j += 32) sum += expf(s_s[gi * pl + j] - mx);
     sum = warp_sum(sum);
     if (lane == 0) st_s[gi] = make_float2(mx, sum);
   }
@@ -373,25 +398,26 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   for (int gi = warp; gi < L.gp; gi += kWarps) {
     const float2 ml = gi < g ? row_s[gi] : make_float2(0.f, 1.f);
     for (int j = lane; j < L.pl; j += 32) {
-      const float pr = gi < g && j < n ? expf(s_s[gi * per + j] - ml.x) / ml.y : 0.f;
+      const float pr = gi < g && j < n ? expf(s_s[gi * pl + j] - ml.x) / ml.y : 0.f;
       const bf16 pb = __float2bfloat16_rn(pr);
       p_s[gi * L.ps + j] = pb;
       nonzero |= __bfloat162float(pb) != 0.f;
     }
   }
-  const bool any = __syncthreads_or(nonzero) && read_v;
+  const bool any = __syncthreads_or(nonzero);
 
   // P.V, a tile at a time, as O^T = V^T P^T on the mma: head_dim (16 a
   // tile) is the m side, the query heads the n side, the tile's rows k.
-  // Warp w keeps the m tiles w, w + kWarps, .. in registers across tiles.
+  // Warp w keeps the m tiles w, w + kWarps, .. in registers across tiles;
+  // a tile whose V was not read has probabilities 0 and is skipped.
   constexpr int kMaxMTiles = 256 / 16 / kWarps;
   float acc[kMaxMTiles][4] = {};
   const int mtiles = L.dp / 16;
   for (int t = 0; t < tiles; ++t) {
     const unsigned vt = landed(tiles + t);
-    if (!any) continue;
-    const int base = t * tile;
-    for (int kk = 0; kk < tile / 16; ++kk) {
+    if (!any || !v_read(t)) continue;
+    const int base = t * kTileRows;
+    for (int kk = 0; kk < kTileRows / 16; ++kk) {
       const int k0 = 16 * kk;
       const bf16* prow = p_s + gq * L.ps + base + k0 + 2 * t4;
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(prow);
@@ -435,20 +461,19 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// Blocks of a cluster: the smallest power of two C with kRowsPerBlock C >= S,
+// Blocks of a cluster: the smallest power of two C with kTileRows C >= S,
 // at most kMaxCluster.
 inline int cluster_size(int s) {
   int c = 1;
-  while (c < kMaxCluster && c * kRowsPerBlock < s) c *= 2;
+  while (c < kMaxCluster && c * kTileRows < s) c *= 2;
   return c;
 }
 
 template <bool KV8>
 cudaError_t launch(DecodeParams p, cudaStream_t st) {
   const int c = cluster_size(p.s);
-  p.per = (p.s + c - 1) / c;
-  p.tile = min(kTileRows, round_up(p.per, 16));
-  const size_t smem = Layout(p.h / p.hkv, p.d, p.per, p.tile).total;
+  p.tiles = ((p.s + kTileRows - 1) / kTileRows + c - 1) / c;
+  const size_t smem = Layout(p.h / p.hkv, p.d, p.tiles).total;
   // The attributes: clusters of up to 16 blocks, and (once a larger one is
   // needed) the dynamic shared memory limit.
   static int smem_limit = [] {
@@ -492,7 +517,7 @@ extern "C" int pg_decode_attention(const void* q, const void* k, const void* v, 
                                    int win1, float scale, void* stream) {
   if ((k_scale == nullptr) != (v_scale == nullptr) || b < 1 || s < 1 || hkv < 1 || h % hkv || h / hkv > 8)
     return cudaErrorInvalidValue;
-  DecodeParams p{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(o), valid, b, s, h, hkv, d, 0, 0,
+  DecodeParams p{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(o), valid, b, s, h, hkv, d, 0,
                  q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                  ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh, win0, win1, scale};

@@ -2,25 +2,40 @@
 ``make_cache``, prefill, ``decode_steps``, ``generate``,
 ``generate_chunked[_stream]`` and ``generate_scan``), greedy or sampled.
 
-The decode step is one function, ``_decode_step``: the model's step, then
-the token choice (``ops.sampling.select_token_traced``), all on the device
-and in place on static buffers. The cache length lives on the device, so
-the step reads nothing back to the host.
+Two functions run on the device, each in place on static buffers and with
+the cache length on the device, so neither reads anything back to the
+host: the prefill (``models/paligemma.prefill`` with last-position logits;
+the reference's ``_prefill_jit``) and the decode step, ``_decode_step``
+(the model's step, then the token choice,
+``ops.sampling.select_token_traced``; the reference's jitted step). The
+choice of the first token stays outside the prefill, as the reference's
+``generate`` keeps it outside ``_prefill_jit``.
 
-- On a CUDA cache the step is captured in a CUDA graph and replayed: the
-  port's counterpart of the reference's compiled programs. A
-  ``decode_steps`` chunk of ``n`` steps is ``n`` replays with no host sync
-  between them (the reference's one ``lax.scan`` program), its tokens on
-  the device until the caller reads them; ``generate`` replays it once a
-  token (the reference's jitted step). One graph of one step serves every
-  chunk length. A graph is captured once per (cache buffers, model,
-  ``fns``, ``do_sample``, EOS freeze) and kept with the cache
-  (``KVCache.graphs``); a cache with other buffers never replays it. There
-  is no eager fallback: a failed capture raises. On a CPU cache the same
-  function runs eagerly.
-- A replay adds the kernel launches captured in it to the wrappers'
-  launch counts (``ops.kernels.add_launch_counts``); the warm-up step and
-  the capture itself count nothing.
+- On a CUDA cache each is captured in a CUDA graph and replayed: the
+  port's counterpart of the reference's compiled programs. There is no
+  eager fallback: a failed capture raises. On a CPU cache the same
+  functions run eagerly.
+- The prefill is captured once per (cache buffers, model, ``fns``,
+  ``input_ids`` shape, ``pixel_values`` shape and dtype), as ``jax.jit``
+  compiles once per shape: the prompt is never padded. The first call of a
+  shape is the eager prefill, run on a side stream as the capture's
+  warm-up; its logits and cache rows are that call's answer. Then the
+  graph is captured (which runs nothing), and every later call of the
+  shape copies its inputs into the graph's static buffers and replays it.
+  A cache keeps its ``PREFILL_GRAPHS`` prefill graphs used last.
+  ``prepare_prefill`` captures one ahead of a request.
+- A ``decode_steps`` chunk of ``n`` steps is ``n`` replays of one step's
+  graph with no host sync between them (the reference's one ``lax.scan``
+  program), its tokens on the device until the caller reads them;
+  ``generate`` replays it once a token. One graph of one step serves every
+  chunk length. It is captured once per (cache buffers, model, ``fns``,
+  ``do_sample``, EOS freeze).
+- Every graph is kept with the cache (``KVCache.graphs``); a cache with
+  other buffers, or another model, never replays it.
+- A replay adds the kernel launches (and the int8 x int8 calls) captured
+  in it to the wrappers' counts (``ops.kernels.add_launch_counts``); the
+  capture itself counts nothing, nor does the decode step's warm-up (the
+  prefill's warm-up counts: it is a request's prefill).
 - Sampling draws from a ``torch.Generator`` (None: the device's default).
   A graph draws from a generator of its own, set from the caller's before
   its replays and copied back after them, so the stream is the one the
@@ -33,7 +48,9 @@ the step reads nothing back to the host.
   request of a known shape captures nothing. The pool keeps the
   ``POOL_SLOTS`` caches handed out last.
 - ``generate`` is the batch-1 loop of the reference's inference script: one
-  replay and one host read (the EOS check) per token.
+  replay and one host read (the EOS check) per token. ``generate_scan`` is
+  one prefill replay, the first token's choice and the decode replays,
+  with no host sync until the caller reads the result.
 """
 from __future__ import annotations
 
@@ -115,6 +132,125 @@ def _pooled_cache(
     return cache
 
 
+def _buffers(cache: KVCache) -> tuple:
+    return tuple(getattr(cache, f.name).data_ptr() for f in dataclasses.fields(cache)
+                 if isinstance(getattr(cache, f.name), torch.Tensor))
+
+
+class _Captured:
+    """What the prefill and decode runners share: a function on one cache's
+    buffers, captured on a CUDA cache as a CUDA graph, and the counts each
+    replay adds. Holds no reference to the cache, and the model only weakly,
+    to tell whether it is still the one the graph reads."""
+
+    def __init__(self, model: PaliGemma, cache: KVCache, fns: KernelFns):
+        self.model_ref, self.buffers, self.fns = weakref.ref(model), _buffers(cache), fns
+        self.graph, self.counts, self.capture_ms = None, {}, 0.0
+
+    def serves(self, model: PaliGemma, cache: KVCache) -> bool:
+        return self.model_ref() is model and self.buffers == _buffers(cache)
+
+    def _capture(self, cache: KVCache, run: Callable, restore: Optional[Callable] = None,
+                 generator: Optional[torch.Generator] = None, count_warm_up: bool = False):
+        """Run ``run()`` once on a side stream (PyTorch's warm-up: lazy
+        set-up such as cuBLAS handles, workspaces and first loads happens
+        there), call ``restore()``, capture ``run()`` (which runs nothing),
+        call ``restore()`` again. The capture's counts are what a replay
+        adds; the warm-up's stay counted with ``count_warm_up``. Returns
+        (the warm-up's result, the captured run's: the graph's outputs)."""
+        dev = cache.k.device
+        t0 = time.perf_counter()
+        before = kernels.call_counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if restore is not None:
+            restore()
+        mid = kernels.call_counts()
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph):
+            out = run()
+        if restore is not None:
+            restore()
+        after = kernels.call_counts()
+        self.counts = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
+        kernels.add_launch_counts({k: (mid if count_warm_up else before)[k] - after[k] for k in after})
+        self.graph, self.capture_ms = graph, (time.perf_counter() - t0) * 1e3
+        return warm, out
+
+    def _replay(self) -> None:
+        self.graph.replay()
+        kernels.add_launch_counts(self.counts)
+
+
+# ---------------------------------------------------------------------------
+# The prefill, eager or as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+# The prefill graphs a cache keeps (those used last). One graph of the 3B
+# model holds 78-168 MiB of device memory (PERF.md), so the POOL_SLOTS
+# caches of a model hold at most ~2.7 GiB of them.
+PREFILL_GRAPHS = 4
+
+
+def _prefill(model, input_ids, pixel_values, cache, fns) -> torch.Tensor:
+    """The prefill a graph captures: (B, 1, V) fp32 last-position logits;
+    the cache holds the prompt's K/V rows after it."""
+    return paligemma.prefill(model, input_ids, pixel_values, cache, full_logits=False, fns=fns)[0]
+
+
+class _PrefillRunner(_Captured):
+    """``_prefill`` on one cache's buffers for one input shape: eager on a
+    CPU cache; on a CUDA cache, the first call's eager prefill (the
+    capture's warm-up, the call's answer), then the graph captured on static
+    copies of its inputs, which every later call fills and replays."""
+
+    def __init__(self, model, cache, fns):
+        super().__init__(model, cache, fns)
+        self.ids = self.pix = self.logits = None
+
+    def run(self, model: PaliGemma, cache: KVCache, input_ids: torch.Tensor,
+            pixel_values: torch.Tensor) -> torch.Tensor:
+        if cache.k.device.type != "cuda":
+            return _prefill(model, input_ids, pixel_values, cache, self.fns)
+        if cache.host_length:  # the graph writes the rows from 0 on
+            raise ValueError("prefill (T > 1) needs an empty cache")
+        if self.graph is None:
+            self.ids = input_ids.clone(memory_format=torch.contiguous_format)
+            self.pix = pixel_values.clone(memory_format=torch.contiguous_format)
+
+            def run():  # capturing a forward advances the host length too
+                cache.host_length = 0
+                return _prefill(model, self.ids, self.pix, cache, self.fns)
+
+            logits, self.logits = self._capture(cache, run, count_warm_up=True)
+            return logits
+        self.ids.copy_(input_ids)
+        self.pix.copy_(pixel_values)
+        self._replay()
+        cache.host_length = input_ids.shape[1]
+        return self.logits.clone()
+
+
+def _prefill_runner(model, cache, fns, ids_shape, pix_shape, pix_dtype) -> _PrefillRunner:
+    """The cache's prefill runner of this shape (a new one if it has none
+    that reads this model and these buffers), now its most recently used;
+    prefill runners past the ``PREFILL_GRAPHS`` used last are dropped."""
+    key = ("prefill", id(model), fns, tuple(ids_shape), tuple(pix_shape), pix_dtype)
+    runner = cache.graphs.pop(key, None)
+    if runner is None or not runner.serves(model, cache):
+        runner = _PrefillRunner(model, cache, fns)
+    cache.graphs[key] = runner
+    for k in [k for k in cache.graphs if k[0] == "prefill"][:-PREFILL_GRAPHS]:
+        del cache.graphs[k]
+    return runner
+
+
 @torch.no_grad()
 def prefill(
     model: PaliGemma,
@@ -123,8 +259,40 @@ def prefill(
     cache: KVCache,
     fns: KernelFns = KERNELS,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Prefill with last-position logits only: (B, 1, V) fp32 + warm cache."""
-    return paligemma.prefill(model, input_ids, pixel_values, cache, full_logits=False, fns=fns)
+    """Prefill into the empty ``cache`` with last-position logits only:
+    (B, 1, V) fp32 + the warm cache. On a CUDA cache a replay of the graph
+    of this input shape (captured at the first call of the shape, whose
+    answer is the eager prefill that warms the capture up)."""
+    runner = _prefill_runner(model, cache, fns, input_ids.shape, pixel_values.shape, pixel_values.dtype)
+    return runner.run(model, cache, input_ids, pixel_values), cache
+
+
+@torch.no_grad()
+def prepare_prefill(
+    model: PaliGemma,
+    cache: KVCache,
+    input_ids_shape: Tuple[int, int],
+    pixel_values_shape: Tuple[int, int, int, int],
+    fns: KernelFns = KERNELS,
+) -> float:
+    """Capture the cache's prefill graph for inputs of these shapes now,
+    before a request needs it (pixel values in the vision tower's dtype), on
+    zero ids and pixels; the cache is left empty, in place: buffers zeroed,
+    ``host_length`` 0. Returns the capture's host ms, warm-up prefill
+    included (0.0 when nothing was captured: a CPU cache, or a graph of
+    these shapes already)."""
+    if cache.k.device.type != "cuda":
+        return 0.0
+    pix_dtype = model.vision.patch_embedding.weight.dtype
+    runner = _prefill_runner(model, cache, fns, input_ids_shape, pixel_values_shape, pix_dtype)
+    if runner.graph is not None:
+        return 0.0
+    dev = cache.k.device
+    runner.run(model, cache, torch.zeros(input_ids_shape, dtype=torch.int32, device=dev),
+               torch.zeros(pixel_values_shape, dtype=pix_dtype, device=dev))
+    gemma.reset_cache(cache)
+    cache.host_length = 0
+    return runner.capture_ms
 
 
 # ---------------------------------------------------------------------------
@@ -165,18 +333,12 @@ def _decode_step(
     st.step.add_(1)
 
 
-def _buffers(cache: KVCache) -> tuple:
-    return tuple(getattr(cache, f.name).data_ptr() for f in dataclasses.fields(cache)
-                 if isinstance(getattr(cache, f.name), torch.Tensor))
-
-
-class _DecodeRunner:
+class _DecodeRunner(_Captured):
     """``_decode_step`` on one cache's buffers: eager on a CPU cache; on a
-    CUDA cache, captured as a CUDA graph that a run replays once a step.
-    Holds no reference to the cache or the model (the model weakly, to tell
-    whether it is still the one the graph reads)."""
+    CUDA cache, captured as a CUDA graph that a run replays once a step."""
 
     def __init__(self, model, cache, fns, do_sample, freeze):
+        super().__init__(model, cache, fns)
         b, dev = cache.valid.shape[0], cache.k.device
         self.state = _StepState(
             token=torch.zeros((b, 1), dtype=torch.int32, device=dev),
@@ -187,43 +349,19 @@ class _DecodeRunner:
             eos=torch.zeros((), dtype=torch.int32, device=dev),
             done=torch.zeros(b, dtype=torch.bool, device=dev),
         )
-        self.model_ref, self.buffers = weakref.ref(model), _buffers(cache)
-        self.fns, self.do_sample, self.freeze = fns, do_sample, freeze
-        self.graph, self.counts, self.capture_ms = None, {}, 0.0
+        self.do_sample, self.freeze = do_sample, freeze
         if dev.type == "cuda":
-            self._capture(model, cache)
+            if do_sample:  # a generator of the graph's own, registered with it
+                self.state.generator = torch.Generator(device=dev)
+            # The warm-up step is undone: the cache's length is put back.
+            length, valid, host_length = cache.length.clone(), cache.valid.clone(), cache.host_length
 
-    def serves(self, model: PaliGemma, cache: KVCache) -> bool:
-        return self.model_ref() is model and self.buffers == _buffers(cache)
+            def restore():
+                cache.length.copy_(length)
+                cache.valid.copy_(valid)
+                cache.host_length = host_length
 
-    def _capture(self, model: PaliGemma, cache: KVCache) -> None:
-        """Warm up one step on a side stream (lazy set-up: cuBLAS handles and
-        workspaces), undo what it did to the cache's length, then capture."""
-        st, dev = self.state, cache.k.device
-        if self.do_sample:  # a generator of the graph's own, registered with it
-            st.generator = torch.Generator(device=dev)
-        t0 = time.perf_counter()
-        length, valid, host_length = cache.length.clone(), cache.valid.clone(), cache.host_length
-        before = kernels.launch_counts()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._step(model, cache)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        cache.length.copy_(length)
-        cache.valid.copy_(valid)
-        cache.host_length = host_length
-        mid = kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        if st.generator is not None:
-            graph.register_generator_state(st.generator)
-        with torch.cuda.graph(graph):
-            self._step(model, cache)
-        cache.host_length = host_length
-        after = kernels.launch_counts()
-        self.counts = {k: after[k] - mid[k] for k in after if after[k] != mid[k]}
-        kernels.add_launch_counts({k: before[k] - after[k] for k in after})
-        self.graph, self.capture_ms = graph, (time.perf_counter() - t0) * 1e3
+            self._capture(cache, lambda: self._step(model, cache), restore, self.state.generator)
 
     def _step(self, model, cache) -> None:
         _decode_step(model, cache, self.state, self.fns, self.do_sample, self.freeze)
@@ -263,8 +401,7 @@ class _DecodeRunner:
                 caller = torch.cuda.default_generators[cache.k.device.index or 0]
             self.state.generator.set_state(caller.get_state())
         for _ in range(n):
-            self.graph.replay()
-            kernels.add_launch_counts(self.counts)
+            self._replay()
         cache.host_length += n
         if self.do_sample:
             caller.set_state(self.state.generator.get_state())

@@ -58,7 +58,7 @@ class KVCache:
     length: () int32 device tensor, the number of written positions.
     valid: (batch,) int32 device tensor, the decode kernel's visible length.
     host_length: host mirror of ``length`` for the bounds checks.
-    graphs: the decode graphs captured on these buffers
+    graphs: the prefill and decode graphs captured on these buffers
     (``generation.py``), shared by every ``KVCache`` object over them.
     """
 

@@ -35,6 +35,9 @@ from paligemma_tpu_torch.ops.attention import MASK_VALUE as NEG_INF
 from paligemma_tpu_torch.ops.attention import LengthMask
 
 MAX_HEAD_DIM = 256
+# The dynamic shared memory a block may take on an sm_90 card (the kernel
+# library is built for sm_90a only).
+MAX_SHARED_BYTES = 232448
 
 ValidLen = Optional[Union[int, torch.Tensor]]
 Window = Optional[Union[int, torch.Tensor]]
@@ -216,8 +219,11 @@ def decode_attention(
     (B, S, Hkv) fp32 row scales ``k_scale`` and ``v_scale`` (views of the
     int8 cache's scales). Returns (B, 1, H, D) in q.dtype. One launch: a
     thread-block cluster per (batch row, kv head) holds the row's scores in
-    shared memory, so a cache longer than about 26000 positions (head_dim
-    256) raises a CUDA error.
+    shared memory, so a longer cache than ``decode_max_len(H // Hkv, D)``
+    positions (25600 at 8 query heads a kv head and head_dim 256) raises a
+    ``ValueError`` before any launch. The result depends on the visible
+    rows, not on S: the same q and visible rows in a longer buffer give the
+    same bits.
     """
     if q.device.type == "cpu":
         return decode_attention_plain(
@@ -240,6 +246,12 @@ def decode_attention(
         )
     if h // hkv > 8:
         raise ValueError(f"decode_attention: the kernel takes at most 8 query heads per kv head, got {h // hkv}")
+    if _decode_shared_bytes(s_len, h // hkv, d) > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"decode_attention: a cache of {s_len} positions does not fit the kernel's shared memory; "
+            f"the longest it takes at {h // hkv} query heads a kv head and head_dim {d} is "
+            f"{decode_max_len(h // hkv, d)}"
+        )
     scale = d**-0.5 if scale is None else scale
     win = _window(gen_start, gen_end)
     valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
@@ -262,6 +274,45 @@ def decode_attention(
 
 
 decode_attention.launches = 0
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _decode_tiles(s_len: int) -> int:
+    """The 64-row tiles of the decode kernel's fullest block at cache length
+    ``s_len``: a cluster of the smallest power of two C with 64 C >= S (at
+    most 16), tile i in block i mod C (``csrc/decode_attention.cu``)."""
+    c = 1
+    while c < 16 and 64 * c < s_len:
+        c *= 2
+    return -(-_round_up(s_len, 64) // 64 // c)
+
+
+def _decode_shared_bytes(s_len: int, g: int, d: int) -> int:
+    """The decode kernel's dynamic shared memory a block, by its ``Layout``:
+    the queries, the partial outputs, the k parts' sums, the statistics,
+    fp32 scores and bf16 probabilities of the block's tiles, and a ring of
+    four 64-row bf16 tiles."""
+    dp, pl = _round_up(d, 16), 64 * _decode_tiles(s_len)
+    part = _round_up(2 * 8 * (dp + 8), 16)
+    red = part + _round_up(4 * g * d, 16)
+    stats = red + 4 * 12 * 4 * 32
+    scores = stats + _round_up(16 * g, 16)
+    probs = scores + _round_up(4 * g * pl, 16)
+    ring = probs + _round_up(2 * 8 * (pl + 8), 16)
+    return ring + 4 * 64 * (2 * dp + 16)
+
+
+def decode_max_len(g: int, d: int) -> int:
+    """The longest cache ``decode_attention`` takes on CUDA with ``g`` query
+    heads a kv head and head_dim ``d``: 1024 positions a tile of the
+    16-block cluster's fullest block, as many tiles as shared memory holds."""
+    tiles = 1
+    while _decode_shared_bytes(1024 * (tiles + 1), g, d) <= MAX_SHARED_BYTES:
+        tiles += 1
+    return 1024 * tiles
 
 
 def _check_cuda(name: str, q, k, v, h: int, hkv: int, d: int, kv_dtype=torch.bfloat16) -> None:

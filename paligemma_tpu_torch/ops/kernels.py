@@ -48,10 +48,17 @@ def launch_counts() -> dict:
     return {**ca.launch_counts(), **quant.launch_counts()}
 
 
+def call_counts() -> dict:
+    """``launch_counts`` and the int8 x int8 products' calls under the name
+    ``a8_matmul`` (``torch._int_mm``, not a kernel of the port): what the
+    replay of a CUDA graph adds back."""
+    return {**launch_counts(), "a8_matmul": quant.a8_matmul.calls}
+
+
 def add_launch_counts(counts: Mapping[str, int]) -> None:
-    """Add ``counts`` (named as ``launch_counts`` names them) to the launch
-    counts. The replay of a CUDA graph adds the launches captured in it:
-    its kernels run without their wrappers."""
+    """Add ``counts`` (named as ``call_counts`` names them) to the launch
+    counts and the int8 x int8 calls. The replay of a CUDA graph adds what
+    was captured in it: its kernels run without their wrappers."""
     ca.add_launch_counts(counts)
     quant.add_launch_counts(counts)
 

@@ -526,9 +526,11 @@ def launch_counts() -> dict:
 
 
 def add_launch_counts(counts: Mapping[str, int]) -> None:
-    """Add ``counts[name]`` to the launch count of each kernel named there."""
+    """Add ``counts[name]`` to the launch count of each kernel named there,
+    and ``counts["a8_matmul"]`` to ``a8_matmul``'s call count."""
     for fn in _COUNTED:
         fn.launches += counts.get(fn.__name__, 0)
+    a8_matmul.calls += counts.get("a8_matmul", 0)
 
 
 def reset_launch_counts() -> None:

@@ -5,8 +5,10 @@
 Each kernel is held to its plain version on the same inputs (two bf16 ulps,
 see chip_smoke.py; the integer stages exactly), and a tiny model's kernel
 path to its plain path, in bf16 and in the int8, int4 and w4a8 modes and
-with the int8 KV cache; the decode step replayed as a CUDA graph must give
-the eager step's tokens and launch counts, greedy and sampled.
+with the int8 KV cache; decode attention gives one output for one set of
+visible rows at every cache length; the decode step replayed as a CUDA
+graph must give the eager step's tokens and launch counts, greedy and
+sampled, and the prefill's graph the eager prefill's bits.
 """
 import dataclasses
 
@@ -104,6 +106,47 @@ def test_decode_kernel_matches_plain(cuda, b, s, h, hkv, d, valid):
     out = ca.decode_attention(q, kc, vc, vl, **win)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ca.decode_attention_plain(q, kc, vc, vl, **win), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("valid,lengths", [
+    (292, (308, 320, 384, 512, 1100, 4128)),  # clusters of 8 and 16 blocks, one and more tiles a block
+    (1000, (1024, 1100, 4128)),
+])
+def test_decode_does_not_depend_on_the_cache_length(cuda, kv_int8, valid, lengths):
+    """One q and one set of visible K/V rows, poisoned past them, in caches
+    of several lengths give one output, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _rand(gen, (1, 1, 8, 256), cuda)
+    rows = [_rand(gen, (1, valid, 1, 256), cuda) for _ in range(2)]
+    vl = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    outs = []
+    for s_len in lengths:
+        k, v = (torch.full((3, 1, s_len, 1, 256), 1e4, dtype=torch.bfloat16, device=cuda) for _ in range(2))
+        k[1, :, :valid], v[1, :, :valid] = rows
+        kw = {}
+        if kv_int8:
+            (k, ks), (v, vs) = gemma.quantize_kv_rows(k), gemma.quantize_kv_rows(v)
+            kw = {"k_scale": ks[1], "v_scale": vs[1]}
+        outs.append(ca.decode_attention(q, k[1], v[1], vl, **kw))  # a layer of a stacked cache
+    torch.cuda.synchronize()
+    assert all(torch.equal(out, outs[0]) for out in outs[1:])
+
+
+def test_decode_refuses_a_cache_longer_than_its_shared_memory_holds(cuda):
+    longest = ca.decode_max_len(8, 256)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = _rand(gen, (1, 1, 8, 256), cuda)
+    k, v = _rand(gen, (1, 30000, 1, 256), cuda), _rand(gen, (1, 30000, 1, 256), cuda)
+    vl = torch.tensor([longest - 5], dtype=torch.int32, device=cuda)
+    before = ca.launch_counts()["decode_attention"]
+    with pytest.raises(ValueError, match=f"longest it takes .* is {longest}"):
+        ca.decode_attention(q, k, v, vl)
+    assert ca.launch_counts()["decode_attention"] == before
+    out = ca.decode_attention(q, k[:, :longest], v[:, :longest], vl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ca.decode_attention_plain(q, k[:, :longest], v[:, :longest], vl),
+                               rtol=RTOL, atol=ATOL)
 
 
 def test_kernels_refuse_fp32(cuda):
@@ -453,3 +496,55 @@ def test_decode_graph_gives_the_eager_tokens_and_launch_counts(cuda, kv_int8):
     chunked = generation.generate_chunked(model, ids, pix, n + 1, -1, chunk=3,
                                           generator=torch.Generator(device=cuda).manual_seed(3), **kw)
     assert chunked == sampled
+
+
+# ---------------------------------------------------------------------------
+# The prefill as a CUDA graph (generation.py)
+# ---------------------------------------------------------------------------
+
+
+def _cache_tensors(cache):
+    return {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)
+            if isinstance(getattr(cache, f.name), torch.Tensor)}
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_prefill_graph_is_the_eager_prefill_bit_for_bit(cuda, kv_int8):
+    """Two prompt lengths in one cache: the first call of a shape (the
+    eager warm-up) and its replays give the eager prefill's logits, cache,
+    length and valid length bit for bit, and its launches;
+    ``prepare_prefill`` captures ahead and leaves the cache empty."""
+    cfg = paligemma_tpu_torch.tiny_config()
+    cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, hidden_size=32, intermediate_size=64))
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    n_img = cfg.vision_config.num_image_tokens
+    pix = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)).to(cuda, torch.bfloat16)
+    prompts = [torch.cat([torch.full((1, n_img), cfg.image_token_index), torch.arange(2, 2 + n)[None]], 1).to(cuda)
+               for n in (7, 4)]
+    cache_dtype = torch.int8 if kv_int8 else None
+    cache = generation.make_cache(model, 1, prompts[0].shape[1], 4, cache_dtype)
+    for ids in prompts:
+        eager_cache = generation.make_cache(model, 1, prompts[0].shape[1], 4, cache_dtype)
+        before = kernels.call_counts()
+        want, eager_cache = paligemma.prefill(model, ids, pix, eager_cache, full_logits=False)
+        want_counts = {k: v - before[k] for k, v in kernels.call_counts().items()}
+        for _ in range(3):  # the first call of the shape, then two replays
+            cache = gemma.reset_cache(cache)
+            before = kernels.call_counts()
+            got, cache = generation.prefill(model, ids, pix, cache)
+            torch.cuda.synchronize()
+            assert {k: v - before[k] for k, v in kernels.call_counts().items()} == want_counts
+            assert torch.equal(got, want) and cache.host_length == ids.shape[1]
+            ref = _cache_tensors(eager_cache)
+            assert all(torch.equal(x, ref[name]) for name, x in _cache_tensors(cache).items())
+    runners = [r for key, r in cache.graphs.items() if key[0] == "prefill"]
+    assert len(runners) == 2 and all(r.graph is not None for r in runners)
+
+    fresh = generation.make_cache(model, 1, prompts[0].shape[1], 4, cache_dtype)
+    assert generation.prepare_prefill(model, fresh, prompts[1].shape, pix.shape) > 0.0
+    assert generation.prepare_prefill(model, fresh, prompts[1].shape, pix.shape) == 0.0
+    assert fresh.host_length == 0 and not any(x.any() for x in _cache_tensors(fresh).values())
+    got, fresh = generation.prefill(model, prompts[1], pix, fresh)
+    assert torch.equal(got, want)
+    assert all(torch.equal(x, ref[name]) for name, x in _cache_tensors(fresh).items())

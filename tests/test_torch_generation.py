@@ -26,6 +26,7 @@ from paligemma_tpu.models import paligemma as jpg
 import paligemma_tpu_torch
 from paligemma_tpu_torch import generation as tgen
 from paligemma_tpu_torch import processing as tproc
+from paligemma_tpu_torch.models import gemma
 from paligemma_tpu_torch.ops import _build
 from paligemma_tpu_torch.utils import memory, profiling
 from paligemma_tpu_torch.utils.convert import from_jax_params
@@ -312,12 +313,16 @@ def test_pooled_cache_is_reused_once_dropped(setup):
     ids, pix = map(torch.from_numpy, _inputs(pt, 2))
     _, first = tgen.generate(model, ids, pix, 5, -1)
     ptr, graphs = first.k.data_ptr(), first.graphs
-    assert len(graphs) == 1
+    # One decode runner, and a prefill runner of this request's shape (the
+    # pool may have handed these buffers to other prompts before).
+    assert sum(k[0] != "prefill" for k in graphs) == 1
+    assert any(k[0] == "prefill" and k[3] == tuple(ids.shape) for k in graphs)
+    kept = dict(graphs)
     _, held = tgen.generate(model, ids, pix, 5, -1)
     assert held.k.data_ptr() != ptr  # ``first`` is still held
     del first
     toks, again = tgen.generate(model, ids, pix, 5, -1)
-    assert again.k.data_ptr() == ptr and again.graphs is graphs and len(graphs) == 1
+    assert again.k.data_ptr() == ptr and again.graphs is graphs and graphs == kept  # nothing new
     assert int(again.length) == again.host_length == ids.shape[1] + 4
     assert toks == tgen.generate(model, ids, pix, 5, -1)[0]
 
@@ -339,6 +344,91 @@ def test_pooled_caches_share_length_buckets_and_stay_bounded(setup):
     slots = tgen._CACHE_POOL[model]
     assert [s[1].k.data_ptr() for s in slots] == [c.k.data_ptr() for c in held[-tgen.POOL_SLOTS:]]
     assert b.k.data_ptr() == ptr and int(b.length) == 0  # dropped from the pool, still its holder's
+
+
+# ---------------------------------------------------------------------------
+# The prefill (a CUDA graph per input shape on the card; eager here)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("prompt", [0, 1])  # two prompt lengths
+@pytest.mark.parametrize("kv", list(CACHES))
+def test_prefill_matches_jitted_jax_prefill(setup, kv, prompt):
+    """``generation.prefill`` gives jitted JAX's last-position logits and
+    writes its cache rows, length and valid length; again on the same
+    buffers, emptied (the runner kept with the cache)."""
+    cfg_j, params, _, _, model, pt = setup
+    jdtype, tdtype = CACHES[kv]
+    ids, pix = _inputs(pt, prompt)
+    t = ids.shape[1]
+    jcache = jgen.make_cache(cfg_j, 1, t, 3, jdtype)
+    lg_j, jcache = jax.jit(jpg.prefill, static_argnums=(1, 5))(
+        params, cfg_j, jnp.asarray(ids), jnp.asarray(pix), jcache, False)
+    cache = tgen.make_cache(model, 1, t, 3, tdtype)
+    for _ in range(2):
+        cache = gemma.reset_cache(cache)
+        lg_t, cache = tgen.prefill(model, torch.from_numpy(ids), torch.from_numpy(pix), cache)
+        assert lg_t.dtype == torch.float32 and tuple(lg_t.shape) == tuple(lg_j.shape) == (1, 1, cfg_j.vocab_size)
+        np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), rtol=1e-5, atol=1e-5)
+        assert int(cache.length) == int(jcache.length) == t == cache.host_length
+        assert cache.valid.tolist() == [t]
+        if kv == "float":
+            for got, ref in ((cache.k, jcache.k), (cache.v, jcache.v)):
+                np.testing.assert_allclose(got[:, :, :t].numpy(), np.asarray(ref[:, :, :t]), rtol=1e-5, atol=1e-5)
+                assert not got[:, :, t:].any()
+        else:  # K/V ~1e-6 apart in fp32: the int8 values within one step
+            for got, ref in ((cache.k, jcache.k), (cache.v, jcache.v)):
+                diff = got[:, :, :t].numpy().astype(np.int32) - np.asarray(ref[:, :, :t], np.int32)
+                assert np.abs(diff).max() <= 1 and not got[:, :, t:].any()
+            for got, ref in ((cache.k_scale, jcache.k_scale), (cache.v_scale, jcache.v_scale)):
+                np.testing.assert_allclose(got[:, :, :t].numpy(), np.asarray(ref[:, :, :t]), rtol=1e-5)
+    assert [k[0] for k in cache.graphs] == ["prefill"]  # one runner, no graph on the CPU
+    assert all(r.graph is None for r in cache.graphs.values())
+    with pytest.raises(ValueError, match="empty cache"):
+        tgen.prefill(model, torch.from_numpy(ids), torch.from_numpy(pix), cache)
+
+
+def test_prepare_prefill_captures_nothing_on_the_cpu(setup):
+    _, _, _, _, model, pt = setup
+    ids, pix = _inputs(pt)
+    cache = tgen.make_cache(model, 1, ids.shape[1], 4)
+    assert tgen.prepare_prefill(model, cache, ids.shape, pix.shape) == 0.0
+    assert int(cache.length) == cache.host_length == 0 and not cache.graphs
+    assert not cache.k.any() and not cache.v.any() and not cache.valid.any()
+
+
+def test_prefill_runners_stay_bounded_least_recently_used_first(setup):
+    """A cache keeps the ``PREFILL_GRAPHS`` prefill runners (on the card,
+    graphs) of the input shapes it served last; its decode runners do not
+    count against them. On the CPU a runner holds no graph."""
+    _, _, _, _, model, pt = setup
+    img = _images()[0]
+    inputs = [pt(["x" * n], [img]) for n in range(1, tgen.PREFILL_GRAPHS + 3)]
+    lengths = [x["input_ids"].shape[1] for x in inputs]
+    assert len(set(lengths)) == len(lengths)
+    cache = tgen.make_cache(model, 1, max(lengths), 4)
+
+    def run(i):
+        nonlocal cache
+        cache = gemma.reset_cache(cache)
+        logits, cache = tgen.prefill(model, torch.from_numpy(inputs[i]["input_ids"]),
+                                     torch.from_numpy(inputs[i]["pixel_values"]), cache)
+        return logits
+
+    def kept():  # prompt lengths of the prefill runners, least recently used first
+        return [k[3][1] for k in cache.graphs if k[0] == "prefill"]
+
+    first = run(0)
+    tgen.decode_steps(model, first.argmax(-1).to(torch.int32), cache, 2)  # a decode runner
+    for i in range(1, tgen.PREFILL_GRAPHS):
+        run(i)
+    assert kept() == lengths[: tgen.PREFILL_GRAPHS]
+    run(0)  # used again: now the most recent
+    run(tgen.PREFILL_GRAPHS)  # one past the bound: the least recently used goes
+    assert kept() == [*lengths[2: tgen.PREFILL_GRAPHS], lengths[0], lengths[tgen.PREFILL_GRAPHS]]
+    assert len(cache.graphs) == tgen.PREFILL_GRAPHS + 1  # and the decode runner
+    assert all(r.graph is None for r in cache.graphs.values())
+    assert torch.equal(run(0), first)
 
 
 def test_memory_probes_and_tree_bytes(setup):

@@ -9,15 +9,20 @@ serving arm (the bf16 model, and each of chip_smoke's ``QUANT_ARMS``: the
 model quantized on the card by ``quantization.quantize_params``, with the
 arm's cache), after a warm-up:
 
-- host-clock ms of one ``generation.prefill`` and ms/token of one eager
-  decode chunk of ``STEPS`` tokens (``chip_smoke.eager_chunk``: the decode
-  step issued launch by launch), unprofiled; and ms/token of the same chunk
-  through ``generation.decode_steps`` (replays of the captured CUDA graph);
-- the prefill, the eager chunk and the graph chunk (captured before the
-  profile) under ``torch.profiler`` (CUPTI): device time = the sum of the
+- host-clock ms of one eager prefill (``models/paligemma.prefill`` issued
+  launch by launch from Python) and of one ``generation.prefill`` (a
+  replay of the prefill's CUDA graph, captured at the warm-up), and
+  ms/token of one eager decode chunk of ``STEPS`` tokens
+  (``chip_smoke.eager_chunk``: the decode step issued launch by launch),
+  unprofiled; and ms/token of the same chunk through
+  ``generation.decode_steps`` (replays of the captured CUDA graph). All on
+  one cache of the arm, emptied before each prefill;
+- the eager prefill, the graph prefill, the eager chunk and the graph
+  chunk under ``torch.profiler`` (CUPTI): device time = the sum of the
   CUDA kernels' own time, by kernel name and by group (the port's kernels,
   cuBLAS, PyTorch's elementwise and reductions), per prefill and per decode
-  token, with the launches of each. A trace that holds fewer records
+  token, with the launches of each, and the busy share (device time over
+  the unprofiled host ms). A trace that holds fewer records
   of a port kernel than its wrapper's launch count says were launched has
   lost records: the call is profiled again, up to ``TRIES`` times, and the
   arm's ``records`` entry keeps the tries and what the last trace lacked.
@@ -120,6 +125,7 @@ def main() -> int:
         return 2
     import chip_smoke
     from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.models import gemma, paligemma
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -129,70 +135,80 @@ def main() -> int:
     ids, pix = chip_smoke._request(torch, proc, 0)
     n = STEPS
 
-    def prefill(m, cache_dtype):
-        cache = generation.make_cache(m, 1, ids.shape[1], n + 1, cache_dtype)
-        logits, cache = generation.prefill(m, ids, pix, cache)
-        return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
-
     result = {"device": smi, "prompt_len": int(ids.shape[1]), "steps": n, "arms": {}}
     for arm, qargs, kv_int8 in [("bf16", None, False)] + chip_smoke.QUANT_ARMS:
         m = model if qargs is None else quantization.quantize_params(model, **qargs)
         cache_dtype = torch.int8 if kv_int8 else None
+        # One cache: its prefill graph and decode graph serve every call.
+        arm_cache = generation.make_cache(m, 1, ids.shape[1], n + 1, cache_dtype)
+
+        def prefill(replay=True):
+            cache = gemma.reset_cache(arm_cache)
+            if replay:
+                logits, cache = generation.prefill(m, ids, pix, cache)
+            else:
+                logits, cache = paligemma.prefill(m, ids, pix, cache, full_logits=False)
+            return logits[:, -1].argmax(-1).to(torch.int32)[:, None], cache
+
         def eager(tok, cache):
             return chip_smoke.eager_chunk(torch, m, tok, cache, n)[0].tolist()
 
         def graph(tok, cache):
             return generation.decode_steps(m, tok, cache, n)[0].tolist()
 
-        tok0, cache = prefill(m, cache_dtype)  # warm-up
-        eager(tok0, cache)
-        torch.cuda.synchronize()
+        def host_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
 
-        t0 = time.perf_counter()
-        tok0, cache = prefill(m, cache_dtype)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
+        _, prefill_capture_ms = host_ms(prefill)  # warm-up: the prefill graph's capture
+        tok0, cache = prefill(replay=False)
+        eager(tok0, cache)
+        _, prefill_ms = host_ms(lambda: prefill(replay=False))
+        (tok0, cache), graph_prefill_ms = host_ms(prefill)
         t0 = time.perf_counter()
         eager(tok0, cache)
         decode_ms = (time.perf_counter() - t0) * 1e3 / n
-        tok0, cache = prefill(m, cache_dtype)
+        tok0, cache = prefill()
         capture_ms = generation.prepare_decode(m, cache)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         graph(tok0, cache)
         graph_ms = (time.perf_counter() - t0) * 1e3 / n
 
-        kern_p, tries_p, missing_p = profiled(torch, lambda _: prefill(m, cache_dtype))
-        kern_d, tries_d, missing_d = profiled(  # each try on a fresh cache
-            torch, lambda pre: eager(*pre), lambda: prefill(m, cache_dtype))
-
-        def captured():
-            tok, cache = prefill(m, cache_dtype)
-            generation.prepare_decode(m, cache)
-            return tok, cache
-
-        kern_g, tries_g, missing_g = profiled(torch, lambda pre: graph(*pre), captured)
+        kern_p, tries_p, missing_p = profiled(torch, lambda _: prefill(replay=False))
+        kern_gp, tries_gp, missing_gp = profiled(torch, lambda _: prefill())
+        kern_d, tries_d, missing_d = profiled(  # each try from a new prefill
+            torch, lambda pre: eager(*pre), prefill)
+        kern_g, tries_g, missing_g = profiled(torch, lambda pre: graph(*pre), prefill)
         rec = {
-            "prefill_host_ms": prefill_ms, "decode_host_ms_per_token": decode_ms,
+            "prefill_host_ms": prefill_ms, "graph_prefill_host_ms": graph_prefill_ms,
+            "graph_prefill_capture_host_ms": prefill_capture_ms, "decode_host_ms_per_token": decode_ms,
             "graph_decode_host_ms_per_token": graph_ms, "graph_capture_ms": capture_ms,
             "prefill": summarize(kern_p, 1),
+            "graph_prefill": summarize(kern_gp, 1),
             "decode_per_token": summarize(kern_d, n),
             "graph_decode_per_token": summarize(kern_g, n),
             "records": {"prefill": {"tries": tries_p, "missing": missing_p},
+                        "graph_prefill": {"tries": tries_gp, "missing": missing_gp},
                         "decode": {"tries": tries_d, "missing": missing_d},
                         "graph_decode": {"tries": tries_g, "missing": missing_g}},
         }
-        rec["prefill"]["busy_share_of_host_ms"] = rec["prefill"]["device_ms"] / prefill_ms
-        rec["decode_per_token"]["busy_share_of_host_ms"] = rec["decode_per_token"]["device_ms"] / decode_ms
-        rec["graph_decode_per_token"]["busy_share_of_host_ms"] = rec["graph_decode_per_token"]["device_ms"] / graph_ms
+        hosts = (("prefill", prefill_ms), ("graph_prefill", graph_prefill_ms), ("decode_per_token", decode_ms),
+                 ("graph_decode_per_token", graph_ms))
+        for phase, host in hosts:
+            rec[phase]["busy_share_of_host_ms"] = rec[phase]["device_ms"] / host
         result["arms"][arm] = rec
-        for phase, host in (("prefill", prefill_ms), ("decode_per_token", decode_ms),
-                            ("graph_decode_per_token", graph_ms)):
+        for phase, host in hosts:
             s = rec[phase]
             groups = " ".join(f"{k} {v['device_ms']:.4f} ({v['launches']:.0f})" for k, v in s["groups"].items())
             print(f"[{arm}] {phase}: host {host:.3f} ms | device {s['device_ms']:.4f} ms, "
-                  f"{s['launches']:.0f} launches | {groups}", flush=True)
-        print(f"[{arm}] graph_decode_per_token: captured in {capture_ms:.2f} ms", flush=True)
+                  f"{s['launches']:.0f} launches, busy {s['busy_share_of_host_ms']:.1%} | {groups}", flush=True)
+        print(f"[{arm}] graph_prefill: first call (eager warm-up + capture) {prefill_capture_ms:.2f} ms | "
+              f"graph_decode_per_token: captured in {capture_ms:.2f} ms", flush=True)
+        del arm_cache, cache
         if m is not model:
             del m
             torch.cuda.empty_cache()
