@@ -99,16 +99,45 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    (its pool, released when it goes; and ``memory_allocated`` after its
    capture).
 
+9. Checkpoint (after phase 5): the seeded bf16 model written as HF-layout
+   safetensors shards with a config.json by the port's writer
+   (``utils/checkpoint.save_hf_checkpoint``) to a temporary directory,
+   loaded back on the card by ``load_model``, whole and streaming: every
+   tensor bit for bit, request 0's greedy tokens unchanged; the write and
+   load seconds, the GB written and the process's peak host RSS; the
+   directory removed.
+10. Batched serving (after phase 7; the final norm redrawn as there):
+    ``serving.batch_generate`` of phase 4's three requests and a repeat at
+    batch 4, bf16 and int8: launch counts the code's; each row's first
+    token its batch-1 first token, its last-position prefill logits within
+    phase 5's 2% bar of batch 1's; the tokens agreeing with batch 1 and the
+    decode ms a step of 4 rows.
+11. Ablation (the final norm redrawn): ``ablation_study_torch``'s grid cut
+    to one length (128), one image and one run, both arms, bf16 at full
+    width, launches the code's; the first token identical across arms and
+    the first uncached step's logits within 2% of the cached prefill's;
+    the match count, ms/token and peak memory per arm.
+12. CLI: ``inference_torch.py --demo`` as a subprocess, exit 0 on cuda.
+
+Phase 3 also holds batched serving's decode (batch 4, per-row valid, the
+window's end read on the device: bit for bit the host end's, also from a
+replayed graph), each row of batch-4 flash calls bit for bit its batch-1
+call, flash at the ablation's buffers (T = S = 512 with 276 valid, 640,
+768, 1024), the q8 GEMV at M = 4, the GEMM at 4 x 276 and 640 / 1024 rows,
+and the w4a8 MLP at 4 rows; phase 6 times them beside the rest.
+
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -180,16 +209,21 @@ FLASH_CASES = [
     ("masked tiles + poison valid=20 of 200 D=72", (1, 200, 4, 4, 72), {"valid_len": 20}, 20),
     ("head_dim 40 GQA 3:1", (2, 70, 6, 2, 40), {"valid_len": [70, 33]}, None),
     # The kernel's tile edges: 32-row query blocks with 64-row kv tiles
-    # split over warp pairs while the grid is small, 64-row query blocks
-    # with 32-row kv tiles once it fills the card (B x H raise the grid).
+    # split over warp pairs while one batch row's grid is small, 64-row
+    # query blocks with 32-row kv tiles once it fills the card (T x H
+    # raise it; the batch never chooses the tiling).
     ("T=S=63 H=16 D=72", (1, 63, 16, 16, 72), {}, None),
     ("T=S=64 H=8 Hkv=1 D=256", (1, 64, 8, 1, 256), {}, None),
     ("T=S=65 H=8 Hkv=1 D=256", (1, 65, 8, 1, 256), {}, None),
     ("T=S=129 H=16 D=8", (1, 129, 16, 16, 8), {}, None),
-    ("T=S=129 B=4 H=16 D=72 (64-row blocks)", (4, 129, 16, 16, 72), {}, None),
-    ("T=S=65 B=9 H=8 Hkv=1 D=256 (64-row blocks)", (9, 65, 8, 1, 256), {}, None),
+    ("T=S=129 B=4 H=16 D=72 (32-row blocks at B=4)", (4, 129, 16, 16, 72), {}, None),
+    ("T=S=129 B=2 H=48 D=72 (64-row blocks)", (2, 129, 48, 48, 72), {}, None),
+    ("T=S=65 B=9 H=8 Hkv=1 D=256", (9, 65, 8, 1, 256), {}, None),
+    ("T=S=65 B=3 H=72 Hkv=9 D=256 (64-row blocks)", (3, 65, 72, 9, 256), {}, None),
     ("masked kv tiles + poison valid=70 of 300 D=256", (1, 300, 8, 1, 256), {"valid_len": 70}, 70),
-    ("masked kv tiles B=4 valid=[70,300,5,129] D=256 (64-row blocks)", (4, 300, 8, 1, 256),
+    ("masked kv tiles B=4 valid=[70,300,5,129] D=256", (4, 300, 8, 1, 256),
+     {"valid_len": [70, 300, 5, 129]}, None),
+    ("masked kv tiles B=4 valid=[70,300,5,129] H=32 Hkv=4 D=256 (64-row blocks)", (4, 300, 32, 4, 256),
      {"valid_len": [70, 300, 5, 129]}, None),
     ("GQA 8:1 valid=200 window=[230,250) D=256", (1, 276, 8, 1, 256),
      {"valid_len": 200, "gen_start": 230, "gen_end": 250}, None),
@@ -375,6 +409,69 @@ def phase_kernels(torch):
             check(all_ok and same, f"{kv}-cache decode valid={valid}: the output depends on the cache length")
             max_err["decode_attention"] = max(max_err["decode_attention"], worst)
 
+    # Batched serving's decode: per-row valid lengths and a shared window
+    # whose end is read on the device, bit for bit the host int's result
+    # (also from a graph replayed as the end moves), within the bar of the
+    # plain version, blind to rows poisoned past the end; bf16 and int8.
+    for kv in ("bf16", "int8"):
+        b, s_len, w0 = 4, 340, 276
+        valid = torch.tensor([276, 250, 263, 276], dtype=torch.int32, device=dev)
+        q = _rand(torch, gen, (b, 1, 8, 256), dev)
+        k, v = _rand(torch, gen, (2, b, s_len, 1, 256), dev), _rand(torch, gen, (2, b, s_len, 1, 256), dev)
+        kw = dict(scale=256**-0.5)
+        if kv == "int8":
+            (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            kw.update(k_scale=ks[1], v_scale=vs[1])
+        k, v = k[1], v[1]  # a layer of a stacked cache
+        end = torch.zeros((), dtype=torch.int32, device=dev)
+        ca.decode_attention(q, k, v, valid, gen_start=w0, gen_end=end, **kw)  # warm-up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = ca.decode_attention(q, k, v, valid, gen_start=w0, gen_end=end, **kw)
+        all_same, worst, all_ok = True, 0.0, True
+        for w1 in (277, 290, 308):
+            end.fill_(w1)
+            dev_out = ca.decode_attention(q, k, v, valid, gen_start=w0, gen_end=end, **kw)
+            host_out = ca.decode_attention(q, k, v, valid, gen_start=w0, gen_end=w1, **kw)
+            graph.replay()
+            kp, vp = k.clone(), v.clone()
+            kp[:, w1:], vp[:, w1:] = (1e4, 1e4) if kv == "bf16" else (127, 127)
+            poisoned = ca.decode_attention(q, kp, vp, valid, gen_start=w0, gen_end=end, **kw)
+            torch.cuda.synchronize()
+            all_same = all_same and all(torch.equal(x, host_out) for x in (dev_out, replayed, poisoned))
+            err, ok = _close(torch, dev_out, ca.decode_attention_plain(q, k, v, valid, gen_start=w0, gen_end=end, **kw))
+            worst, all_ok = max(worst, err), all_ok and ok
+        log(f"[kernel] {'decode_attention':16s} {f'{kv} B=4 S=340 valid=[276,250,263,276] window [276, end) end on the device':60s} "
+            f"max_abs_err {worst:.3e} | bit-identical to the host end, in a replayed graph and poisoned past "
+            f"the end (end 277, 290, 308): {all_same}")
+        check(all_ok and all_same, f"{kv} decode with the window end on the device disagrees")
+        max_err["decode_attention"] = max(max_err["decode_attention"], worst)
+
+    # Flash at the slice's shapes: each row of a batch-4 call bit for bit the
+    # batch-1 call of that row (the tiling never reads the batch), and the
+    # ablation's buffers (a 512-position bucket with 276 valid, the no-cache
+    # pass over 640 / 768 / 1024 positions), within the plain version's bar.
+    for name, (b, t, h, hkv, d), valid in (
+        ("batched prefill B=4 T=S=276 H=8 Hkv=1 D=256", (4, 276, 8, 1, 256), [276, 250, 263, 276]),
+        ("ablation bucket B=4 T=S=512 valid=276 D=256", (4, 512, 8, 1, 256), [276] * 4),
+        ("siglip-224 B=4 T=S=256 H=16 D=72", (4, 256, 16, 16, 72), None),
+        ("no-cache T=S=640 valid=400 D=256", (1, 640, 8, 1, 256), [400]),
+        ("no-cache T=S=768 valid=600 D=256", (1, 768, 8, 1, 256), [600]),
+        ("no-cache T=S=1024 valid=1000 D=256", (1, 1024, 8, 1, 256), [1000]),
+    ):
+        q, k, v = qkv_views(b, t, h, hkv, d)
+        vl = None if valid is None else torch.tensor(valid, dtype=torch.int32, device=dev)
+        out = ca.flash_attention(q, k, v, vl, scale=d**-0.5)
+        rows = [ca.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], None if vl is None else vl[i:i + 1],
+                                   scale=d**-0.5) for i in range(b)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(out[i:i + 1], rows[i]) for i in range(b))
+        err, ok = _close(torch, out, ca.flash_attention_plain(q, k, v, vl, scale=d**-0.5))
+        log(f"[kernel] {'flash_attention':16s} {name:60s} max_abs_err {err:.3e} | each row bit-identical "
+            f"to its batch-1 call: {same}")
+        check(ok and same, f"flash {name}: kernel disagrees or a row depends on the batch")
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+
     # A cache longer than the kernel's shared memory holds raises on the
     # host, before any launch.
     s_len = 30000
@@ -440,6 +537,14 @@ def phase_quant_kernels(torch):
         ("split-K GEMM M=276 O=2048 D=16400", 276, 2048, 16400, False),
         ("split-K GEMM M=276 O=2048 D=16384 fp32", 276, 2048, 16384, True),
         ("448-px GEMM M=1044 O=2048 D=16384", 1044, 2048, 16384, False),
+        # Batched serving (batch 4) and the no-cache pass.
+        ("batch-4 decode qkv GEMV M=4 O=2560 D=2048", 4, 2560, 2048, False),
+        ("batch-4 decode gate_up GEMV M=4 O=32768 D=2048", 4, 32768, 2048, False),
+        ("batch-4 decode down GEMV M=4 O=2048 D=16384", 4, 2048, 16384, False),
+        ("batch-4 lm_head GEMV M=4 O=257152 D=2048 fp32", 4, 257152, 2048, True),
+        ("batch-4 prefill GEMM M=4x276 O=32768 D=2048", 1104, 32768, 2048, False),
+        ("no-cache GEMM M=640 O=2560 D=2048", 640, 2560, 2048, False),
+        ("no-cache GEMM M=1024 O=2048 D=16384", 1024, 2048, 16384, False),
     ]
     for name, m, o, d, f32 in q8_cases:
         x, q = _rand(torch, gen, (m, d), dev), ints((o, d), -127, 128)
@@ -655,7 +760,7 @@ def phase_quant_kernels(torch):
     d, inter = 2048, 16384
     gu, gs = quant.pack_int4(ints((2 * inter, d), -7, 8)), scales(2 * inter, d, 4.3)
     dn, ds = quant.pack_int4(ints((d, inter), -7, 8)), scales(d, inter, 4.3 * 0.7)
-    for m in sorted({1, 5, 13, 64, max_rows, max_rows + 1}):
+    for m in sorted({1, 4, 5, 13, 64, max_rows, max_rows + 1}):  # 4: batched serving's decode
         x = _rand(torch, gen, (1, m, d), dev)
         got = quant.mlp_w4a8(x, gu, gs, dn, ds)
         held("mlp_w4a8", f"3B MLP M={m} D=2048 I=16384", got, quant.mlp_w4a8_plain(x, gu, gs, dn, ds))
@@ -797,6 +902,34 @@ def phase_timing(torch, prompt_len):
                            lambda i, a=qkv, d=d: ca.flash_attention_plain(*a, scale=d**-0.5),
                            lambda i, a=lib, d=d: sdpa(*a, scale=d**-0.5),
                            (*_attention_cost(1, t, t, h, hkv, d), "bf16")))
+    # Batched serving's prefill (batch 4, right-padded rows, the valid
+    # lengths through SDPA's boolean mask), the ablation's 512-position
+    # bucket with 276 valid, and its no-cache pass over 640 / 768 / 1024
+    # positions (T = S = the buffer, the prompt's 276 + the tokens so far
+    # visible); not in the per-launch mean.
+    q4, k4, v4 = qkv_batch = [x.view(4, prompt_len, -1, 256) for x in _rand(
+        torch, gen, (4, prompt_len, 2560), dev).split([2048, 256, 256], dim=-1)]
+    valid4 = torch.tensor([prompt_len, prompt_len - 26, prompt_len - 13, prompt_len], dtype=torch.int32, device=dev)
+    mask4 = (torch.arange(prompt_len, device=dev)[None, :] < valid4[:, None])[:, None, None, :]
+    lib4 = [q4.reshape(4, 1, prompt_len * 8, 256), k4.reshape(4, 1, prompt_len, 256),
+            v4.reshape(4, 1, prompt_len, 256)]
+    flash_rows.append((f"batched prefill B=4 T=S={prompt_len} per-row valid H=8 Hkv=1 D=256", 0,
+                       lambda i: ca.flash_attention(*qkv_batch, valid4, scale=256**-0.5),
+                       lambda i: ca.flash_attention_plain(*qkv_batch, valid4, scale=256**-0.5),
+                       lambda i: sdpa(*lib4, attn_mask=mask4, scale=256**-0.5),
+                       (2 * 2 * 4 * prompt_len * 8 * 256 + 2 * 2 * int(valid4.sum()) * 256,
+                        4 * 8 * prompt_len * int(valid4.sum()) * 256, "bf16")))
+    for t, valid in ((512, prompt_len), (640, prompt_len + 128), (768, prompt_len + 256), (1024, prompt_len + 512)):
+        fused = _rand(torch, gen, (1, t, 2560), dev)
+        qkv = [x.view(1, t, -1, 256) for x in fused.split([2048, 256, 256], dim=-1)]
+        vt = torch.tensor([valid], dtype=torch.int32, device=dev)
+        lib = [qkv[0].reshape(1, 1, t * 8, 256), qkv[1][:, :valid].reshape(1, 1, valid, 256),
+               qkv[2][:, :valid].reshape(1, 1, valid, 256)]
+        flash_rows.append((f"{'ablation bucket' if t == 512 else 'no-cache pass'} T=S={t} valid={valid} H=8 Hkv=1 D=256", 0,
+                           lambda i, a=qkv, vt=vt: ca.flash_attention(*a, vt, scale=256**-0.5),
+                           lambda i, a=qkv, vt=vt: ca.flash_attention_plain(*a, vt, scale=256**-0.5),
+                           lambda i, a=lib: sdpa(*a, scale=256**-0.5),
+                           (*_attention_cost(1, t, valid, 8, 1, 256), "bf16")))
     result["flash_attention"] = _time_rows(torch, "flash_attention", flash_rows,
                                            library="F.scaled_dot_product_attention")
     s_main = prompt_len + MAX_NEW_TOKENS
@@ -827,6 +960,23 @@ def phase_timing(torch, prompt_len):
                      lambda i, a=args, k=kw: ca.decode_attention(*a, **k),
                      lambda i, a=args, k=kw: ca.decode_attention_plain(*a, **k), None,
                      (nbytes, 4 * 8 * valid * 256, "bf16")))
+    # Batched serving's decode step: batch 4, each row its prompt and the
+    # shared window [T, T + 16) whose end the kernel reads on the device (not
+    # in the per-launch mean); SDPA with the same visibility as a boolean mask.
+    s_len = prompt_len + 64
+    kc, vc = (_rand(torch, gen, (18, 4, s_len, 1, 256), dev)[9] for _ in range(2))
+    q = _rand(torch, gen, (4, 1, 8, 256), dev)
+    valid4 = torch.tensor([prompt_len, prompt_len - 26, prompt_len - 13, prompt_len], dtype=torch.int32, device=dev)
+    end = torch.tensor(prompt_len + 16, dtype=torch.int32, device=dev)
+    pos = torch.arange(s_len, device=dev)[None, :]
+    seen = (pos < valid4[:, None]) | ((pos >= prompt_len) & (pos < prompt_len + 16))
+    lib = [q.reshape(4, 1, 8, 256), kc.reshape(4, 1, s_len, 256), vc.reshape(4, 1, s_len, 256)]
+    n_seen = int(seen.sum())
+    rows.append((f"batch-4 decode S={s_len} per-row valid, window end on the device H=8 Hkv=1 D=256", 0,
+                 lambda i: ca.decode_attention(q, kc, vc, valid4, 256**-0.5, prompt_len, end),
+                 lambda i: ca.decode_attention_plain(q, kc, vc, valid4, 256**-0.5, prompt_len, end),
+                 lambda i: sdpa(*lib, attn_mask=seen[:, None, None, :], scale=256**-0.5),
+                 (2 * 2 * 4 * 8 * 256 + 2 * 2 * n_seen * 256, 4 * 8 * n_seen * 256, "bf16")))
     result["decode_attention"] = _time_rows(torch, "decode_attention", rows,
                                             library="F.scaled_dot_product_attention (bf16 cache only)")
 
@@ -864,6 +1014,12 @@ def phase_timing(torch, prompt_len):
         # The 448-px preset's decoder rows (1024 image tokens and a prompt).
         q8_row("448-px prefill gate_up M=1044 O=32768 D=2048", 0, 1044, 32768, 2048),
         q8_row("448-px prefill down M=1044 O=2048 D=16384", 0, 1044, 2048, 16384),
+        # Batched serving's decode (batch 4; int8 arm).
+        q8_row("batch-4 decode qkv M=4 O=2560 D=2048", 0, 4, 2560, 2048),
+        q8_row("batch-4 decode o M=4 O=2048 D=2048", 0, 4, 2048, 2048),
+        q8_row("batch-4 decode gate_up M=4 O=32768 D=2048", 0, 4, 32768, 2048),
+        q8_row("batch-4 decode down M=4 O=2048 D=16384", 0, 4, 2048, 16384),
+        q8_row("batch-4 lm_head M=4 O=257152 D=2048 fp32", 0, 4, 257152, 2048, f32=True),
     ], library="F.linear on the weight dequantized to bf16 ahead of time (bf16 out)")
     del q8_row
 
@@ -1021,7 +1177,7 @@ def phase_timing(torch, prompt_len):
     return result
 
 
-def _expected_launches(cfg, qargs, prompt_len, n_dec):
+def _expected_launches(cfg, qargs, prompt_len, n_dec, batch=1):
     """The launches the code implies for one request (and the a8_matmul
     calls): the attention kernels only for the bf16 model (``qargs`` None);
     else per forward of R rows, in every layer, int4: qkv, o, gate_up and
@@ -1031,7 +1187,9 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec):
     prologue's rows, else two quant_rows and two w4a8_gemv launches), else
     two more such int8 projections; one lm_head row per forward, 4-bit (one
     w4a8_gemv launch with the quantizing prologue) with lm_head_w4, else q8
-    on the int8 embedding. The int8 cache changes no count."""
+    on the int8 embedding. The int8 cache changes no count. ``batch`` rows:
+    a forward of R rows a row is one of batch x R rows (batched serving's
+    prefill takes its lm_head on the rows' last positions, one call)."""
     from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, W4A8_PROLOGUE_MAX_ROWS
     from paligemma_tpu_torch.quantization import A8_MIN_SEQ
 
@@ -1041,7 +1199,7 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec):
     if qargs is None:
         return want
     mode, lm_head_w4 = qargs["mode"], qargs.get("lm_head_w4", False)
-    for rows in [prompt_len] + [1] * n_dec:
+    for rows in [batch * prompt_len] + [batch] * n_dec:
         int8_proj = "a8_matmul" if qargs.get("prefill_a8") and rows >= A8_MIN_SEQ else "q8_matmul"
         if mode == "int4":
             want["q4_matmul"] += 4 * n_layers
@@ -1504,13 +1662,21 @@ def phase_graph(torch, model, cfg, rec, main_counts):
     (1 + w) is redrawn as N(0, 1) from ``GREEDY_NORM_SEED`` (the quantized
     arms share the tensor): a token no longer scores itself highest, and the
     greedy streams change token. It is put back after the phase."""
+    with _tokens_that_change(torch, model):
+        return _phase_graph(torch, model, cfg, rec, main_counts)
+
+
+@contextlib.contextmanager
+def _tokens_that_change(torch, model):
+    """The final norm's scale (1 + w) redrawn as N(0, 1) from
+    ``GREEDY_NORM_SEED`` for the phase (see ``phase_graph``), then put back."""
     norm = model.llm.final_norm.weight
     saved = norm.detach().clone()
-    gen = torch.Generator(device="cuda").manual_seed(GREEDY_NORM_SEED)
+    gen = torch.Generator(device=norm.device).manual_seed(GREEDY_NORM_SEED)
     with torch.no_grad():
-        norm.copy_(torch.randn(norm.shape, generator=gen, device="cuda", dtype=torch.float32) - 1)
+        norm.copy_(torch.randn(norm.shape, generator=gen, device=norm.device, dtype=torch.float32) - 1)
     try:
-        return _phase_graph(torch, model, cfg, rec, main_counts)
+        yield
     finally:
         with torch.no_grad():
             norm.copy_(saved)
@@ -1705,6 +1871,247 @@ def phase_prefill_graph(torch, model, cfg, rec, main_counts):
     return arms
 
 
+def _host_peak_rss_gb() -> float:
+    """The process's peak resident set so far (``getrusage``; KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def phase_checkpoint(torch, model, rec, tok):
+    """The seeded bf16 model written as HF-layout safetensors shards with a
+    config.json (the port's writer) to a temporary directory, loaded back on
+    the card whole and streaming: every tensor bit for bit, request 0's
+    greedy tokens unchanged; the load seconds, GB written and peak host RSS;
+    the directory removed."""
+    import shutil
+    import tempfile
+
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.utils import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="pg_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        written = checkpoint.save_hf_checkpoint(model, tmp)
+        write_s = time.perf_counter() - t0
+        shards = len([f for f in os.listdir(tmp) if f.endswith(".safetensors")])
+        log(f"[checkpoint] wrote {written / 1e9:.3f} GB in {shards} shards + config.json in {write_s:.2f} s")
+        want = model.state_dict()
+        record = {"gb_written": written / 1e9, "write_s": write_s}
+        for streaming in (False, True):
+            rss0 = _host_peak_rss_gb()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded, cfg = checkpoint.load_model(tmp, dtype=model.llm.embed.dtype, streaming=streaming,
+                                                device=model.llm.embed.device)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            rss = _host_peak_rss_gb()
+            got = loaded.state_dict()
+            same = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+            toks, _ = generation.generate(loaded, rec["ids"], rec["pix"], MAX_NEW_TOKENS, tok.eos_token_id)
+            kind = "streaming" if streaming else "whole"
+            log(f"[checkpoint] load_model {kind}: {load_s:.2f} s | the process's peak host RSS {rss0:.2f} GB "
+                f"before the load, {rss:.2f} GB after | every tensor bit for bit: {same} | request 0's "
+                f"{len(toks)} greedy tokens unchanged: {toks == rec['tokens']}")
+            check(cfg == model.cfg and same, f"checkpoint {kind}: the loaded model differs")
+            check(toks == rec["tokens"], f"checkpoint {kind}: request 0's tokens changed")
+            record[f"{kind}_load_s"], record[f"{kind}_peak_rss_gb"] = load_s, (rss0, rss)
+            del loaded, got
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return record
+
+
+def _request_image(i):
+    import numpy as np
+    from PIL import Image
+
+    _, (w, h) = REQUESTS[i]
+    rng = np.random.RandomState(SEED + i)
+    return Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+BATCH_REQUESTS = [0, 1, 2, 0]  # phase 4's three requests and a repeat
+
+
+def phase_batched(torch, model, proc, tok, cfg, records, main_counts):
+    """``serving.batch_generate`` of phase 4's requests and a repeat at batch
+    4, in bf16 and int8: launches the code's; each row's first token its
+    batch-1 first token and its last-position prefill logits within the 2%
+    bar of the batch-1 prefill's; the tokens that agree with batch 1 and the
+    decode ms a step (31 replays of the captured batched step). The final
+    norm is redrawn as in phase 7, so that greedy streams change token."""
+    with _tokens_that_change(torch, model):
+        return _phase_batched(torch, model, proc, tok, cfg, records, main_counts)
+
+
+def _phase_batched(torch, model, proc, tok, cfg, records, main_counts):
+    from paligemma_tpu_torch import generation, quantization, serving
+    from paligemma_tpu_torch.ops import kernels, quant
+
+    prompts = [REQUESTS[i][0] for i in BATCH_REQUESTS]
+    images = [_request_image(i) for i in BATCH_REQUESTS]
+    out = []
+    for arm, qargs in (("bf16", None), ("int8", {"mode": "int8"})):
+        m = model if qargs is None else quantization.quantize_params(model, llm_only=True, **qargs)
+        # Batch 1: each request's prefill logits and greedy tokens.
+        ref_logits, ref_toks = [], []
+        for i in BATCH_REQUESTS:
+            ids, pix = records[i]["ids"], records[i]["pix"]
+            cache = generation.make_cache(m, 1, ids.shape[1], 1)
+            lg, _ = generation.prefill(m, ids, pix, cache)
+            ref_logits.append(lg[0, -1].float())
+            ref_toks.append(generation.generate(m, ids, pix, MAX_NEW_TOKENS, -1)[0])
+        serving.batch_generate(m, proc, prompts, images, MAX_NEW_TOKENS, eos_token_id=-1)  # capture
+        kernels.reset_launch_counts()  # the batched path, read right after it
+        _, rows = serving.batch_generate(m, proc, prompts, images, MAX_NEW_TOKENS, eos_token_id=-1,
+                                         return_tokens=True)
+        counts = {**kernels.launch_counts(), "a8_matmul": quant.a8_matmul.calls}
+        main_counts.update(counts)
+        ids_np, valid_np, pix_np, _ = serving.pad_batch(proc, prompts, images)
+        t_pad = ids_np.shape[1]
+        n_dec = -(-(MAX_NEW_TOKENS - 1) // serving.CHUNK) * serving.CHUNK  # whole chunks, no EOS
+        want = _expected_launches(cfg, qargs, t_pad, n_dec, batch=len(prompts))
+        check(all(counts.get(k, 0) == want[k] for k in set(counts) | set(want)),
+              f"[batched {arm}] launch counts {counts} differ from the code's {dict(want)}")
+
+        # The batched prefill's last-position logits against batch 1's, and
+        # the decode step's time (the captured step replayed 31 times).
+        dev = m.llm.final_norm.weight.device
+        ids, valid = torch.from_numpy(ids_np).to(dev), torch.from_numpy(valid_np).to(dev)
+        pix = torch.from_numpy(pix_np).to(dev, m.vision.patch_embedding.weight.dtype)
+        cache = generation._pooled_cache(m, len(prompts), t_pad, MAX_NEW_TOKENS, None)
+        logits, cache = serving.batched_prefill(m, ids, pix, valid, cache)
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        serving.prepare_batched_decode(m, cache, t_pad)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _, cache = serving.batched_decode_steps(m, first, cache, valid, MAX_NEW_TOKENS - 1, t_pad)
+        toks = toks.tolist()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (MAX_NEW_TOKENS - 1)
+        del cache
+        errs = [float((logits[r].float() - ref_logits[r]).abs().max()) for r in range(len(prompts))]
+        bars = [LOGIT_REL_TOL * float(x.abs().max()) for x in ref_logits]
+        firsts = [row[0] for row in rows]
+        agree = [sum(a == b for a, b in zip(row, ref)) for row, ref in zip(rows, ref_toks)]
+        same_steps = all([int(first[r])] + toks[r] == rows[r] for r in range(len(prompts)))
+        log(f"[batched {arm}] batch {len(prompts)} T_pad {t_pad} valid {valid_np.tolist()} | launches {counts} "
+            f"(expected {dict(want)})")
+        log(f"[batched {arm}] first tokens {firsts} | batch 1 {[r[0] for r in ref_toks]} | prefill logits "
+            f"max|batched - batch 1| {[f'{e:.4e}' for e in errs]} (bars {[f'{b:.4e}' for b in bars]}) | tokens "
+            f"agreeing with batch 1 of {MAX_NEW_TOKENS}: {agree} | decode {step_ms:.3f} ms a step of "
+            f"{len(prompts)} rows (host clock, one sync; batch 1: {records[0]['decode_ms_per_token']:.3f} ms/token "
+            f"through generate) | batch_generate = prefill + decode_steps: {same_steps}")
+        check(firsts == [r[0] for r in ref_toks] == logits.argmax(-1).tolist(),
+              f"[batched {arm}] a row's first token differs from batch 1")
+        check(all(e <= b for e, b in zip(errs, bars)), f"[batched {arm}] batched prefill logits off the bar")
+        check(rows[0] == rows[3], f"[batched {arm}] the repeated request gave other tokens")
+        check(same_steps, f"[batched {arm}] batch_generate and prefill + batched_decode_steps disagree")
+        out.append({"arm": arm, "decode_ms_per_step": step_ms, "agree": agree, "max_logit_err": max(errs)})
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[batched] {json.dumps(out)}")
+    return out
+
+
+ABLATION_LENGTH = 128
+
+
+def phase_ablation(torch, model, proc, main_counts):
+    """``ablation_study_torch``'s grid at full width, cut to one length (128),
+    one image and one run, both arms, bf16: each arm's discarded warm-up run
+    (the graphs' captures), then its measured run with its launches the
+    code's; the first token identical across arms, the first uncached step's
+    logits within 2% of the cached prefill's; the match count and ms/token
+    per arm. The final norm is redrawn as in phase 7, so that greedy
+    streams change token."""
+    import tempfile
+
+    import ablation_study_torch as abl
+    from paligemma_tpu_torch import generation, serving
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory(prefix="pg_ablation_") as tmp, _tokens_that_change(torch, model):
+        item = dict(abl.COCO_BENCHMARK[0])
+        _, item["image_path"] = abl.get_image(item, tmp)
+        runner = abl.Runner(model, proc, max_new_tokens=ABLATION_LENGTH)
+        res, counts = {}, {}
+        for cached in (True, False):
+            config = {"kv_cache": cached, "temperature": 0.0, "max_tokens": ABLATION_LENGTH}
+            abl.run_inference(runner, proc, item["image_path"], item["prompt"], config)  # warm-up, discarded
+            kernels.reset_launch_counts()  # this arm's measured run, read right after it
+            res[cached] = abl.run_inference(runner, proc, item["image_path"], item["prompt"], config,
+                                            return_tokens=True)
+            counts[cached] = kernels.launch_counts()
+            main_counts.update(counts[cached])
+        # The first uncached step's logits against the cached prefill's.
+        from PIL import Image
+
+        ids, pix = runner.inputs(Image.open(item["image_path"]).convert("RGB"), item["prompt"])
+        ids_p, valid, bucket = runner.bucket(ids)
+        cache = generation.make_cache(model, 1, bucket, 1)
+        cached_lg, _ = serving.batched_prefill(model, ids_p, pix, valid, cache)
+        buf = torch.cat([ids_p, torch.zeros((1, ABLATION_LENGTH), dtype=torch.int32, device=ids.device)], dim=1)
+        nocache_lg = paligemma.forward_nocache(model, buf, pix, valid)[0, ids.shape[1] - 1]
+    cached_lg = cached_lg[0].float()
+    err = float((nocache_lg - cached_lg).abs().max())
+    bar = LOGIT_REL_TOL * float(cached_lg.abs().max())
+    tk, tn = res[True]["token_ids"], res[False]["token_ids"]
+    match = sum(a == b for a, b in zip(tk, tn))
+    n_layers = model.cfg.text_config.num_hidden_layers
+    want_cached = {"flash_attention": model.cfg.vision_config.num_hidden_layers + n_layers,
+                   "decode_attention": n_layers * (ABLATION_LENGTH - 1)}
+    # The uncached arm: its untimed throwaway step, then one step a token.
+    want_nocache = {"flash_attention": (model.cfg.vision_config.num_hidden_layers + n_layers) * (ABLATION_LENGTH + 1)}
+    for cached, want in ((True, want_cached), (False, want_nocache)):
+        r = res[cached]
+        log(f"[ablation] {'kv_cache' if cached else 'no_kv_cache'}_{ABLATION_LENGTH}: "
+            f"{r['steady_state_ms_per_token']:.3f} ms/token steady state ({r['steady_state_tps']:.1f} tok/s), "
+            f"{r['total_ms_per_token']:.3f} ms/token overall, peak {r['peak_memory_mb']:.1f} MiB over decode | "
+            f"launches {dict((k, v) for k, v in counts[cached].items() if v)} (expected {want})")
+        check(all(counts[cached][k] == want.get(k, 0) for k in counts[cached]),
+              f"[ablation] {'cached' if cached else 'uncached'} launches differ from the code's")
+    log(f"[ablation] prompt bucket {bucket}, prompt {ids.shape[1]} | first token cached {tk[0]} uncached {tn[0]} | "
+        f"tokens matching of {ABLATION_LENGTH}: {match} | first uncached step's logits max|nocache - cached "
+        f"prefill| {err:.4e} (bar {bar:.4e}) | speedup "
+        f"{res[False]['steady_state_ms_per_token'] / res[True]['steady_state_ms_per_token']:.2f}x")
+    check(tk[0] == tn[0], "[ablation] the first token differs across arms")
+    check(err <= bar, "[ablation] the first uncached step's logits are off the cached prefill's")
+    check(len(tk) == len(tn) == ABLATION_LENGTH, "[ablation] an arm gave the wrong number of tokens")
+    return {"cached_ms_per_token": res[True]["steady_state_ms_per_token"],
+            "uncached_ms_per_token": res[False]["steady_state_ms_per_token"],
+            "cached_peak_mib": res[True]["peak_memory_mb"], "uncached_peak_mib": res[False]["peak_memory_mb"],
+            "match": match, "max_logit_err": err}
+
+
+def phase_cli(torch):
+    """``inference_torch.py --demo`` as a subprocess: exit 0 on the card."""
+    import tempfile
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="pg_cli_") as tmp:
+        img = os.path.join(tmp, "img.png")
+        _request_image(0).save(img)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(repo, "inference_torch.py"), "--demo", "--prompt", "describe",
+             "--image_file_path", img, "--max_tokens_to_generate", "12"],
+            capture_output=True, text=True, timeout=300, cwd=repo,
+        )
+    lines = proc.stdout.splitlines()
+    device = next((line for line in lines if line.startswith("Device in use:")), "")
+    log(f"[cli] inference_torch.py --demo: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s | "
+        f"{device!r} | output {lines[-1] if lines else ''!r}")
+    check(proc.returncode == 0, f"[cli] exit {proc.returncode}: {proc.stderr[-2000:]}")
+    check("cuda" in device, "[cli] the CLI did not run on cuda")
+
+
 KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
@@ -1739,10 +2146,14 @@ def main() -> int:
     records = phase_main_path(torch, model, proc, tok, cfg, main_counts)
     log(f"[memory] max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     phase_plain_path(torch, model, records[0], tok)
+    log(f"[checkpoint] {json.dumps(phase_checkpoint(torch, model, records[0], tok))}")
     arms = [phase_quant_arm(torch, model, proc, tok, cfg, arm, records[0], main_counts) for arm in QUANT_ARMS]
     log(f"[arms] {json.dumps(arms)}")
     phase_prefill_graph(torch, model, cfg, records[0], main_counts)
     phase_graph(torch, model, cfg, records[0], main_counts)
+    phase_batched(torch, model, proc, tok, cfg, records, main_counts)
+    log(f"[ablation] {json.dumps(phase_ablation(torch, model, proc, main_counts))}")
+    phase_cli(torch)
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
     kernels = []

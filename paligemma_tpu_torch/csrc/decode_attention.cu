@@ -102,6 +102,7 @@ struct DecodeParams {
   long long ks_sb, ks_ss, ks_sh;
   long long vs_sb, vs_ss, vs_sh;
   int win0, win1;
+  const int* win1_dev;  // the window's end read on the device, or null (win1)
   float scale;
 };
 
@@ -171,6 +172,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   const int gq = lane >> 2, t4 = lane & 3;  // the mma fragments' row and column group
 
   const int valid = p.valid ? p.valid[bi] : p.s;
+  // The window's end: a host int, or read once from the device (batched
+  // serving's decode step moves it every step inside one CUDA graph).
+  const int win1 = p.win1_dev ? *p.win1_dev : p.win1;
   // The block's tiles: its t-th is tile rank + C t of the cache, positions
   // [tile_c0(t), tile_c0(t) + tile_rows(t)); only the cache's last tile is
   // cut by S, so the block's positions, local j = 64 t + row, are j < n.
@@ -180,14 +184,14 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   auto tile_rows = [&](int t) { return min(kTileRows, p.s - tile_c0(t)); };
   const int n = tiles ? kTileRows * (tiles - 1) + tile_rows(tiles - 1) : 0;
   auto tile_visible = [&](int t) {
-    return kv_range_visible(tile_c0(t), tile_c0(t) + tile_rows(t), valid, p.win0, p.win1);
+    return kv_range_visible(tile_c0(t), tile_c0(t) + tile_rows(t), valid, p.win0, win1);
   };
   // A row with no visible position takes the mean of all V rows (the
   // reference's softmax over NEG_INF scores): then every V row is read.
-  const bool row_masked = !kv_range_visible(0, p.s, valid, p.win0, p.win1);
+  const bool row_masked = !kv_range_visible(0, p.s, valid, p.win0, win1);
   auto v_read = [&](int t) { return row_masked || tile_visible(t); };
   auto row_read = [&](int c, bool is_k) {
-    return kv_visible(c, p.s, valid, p.win0, p.win1) || (!is_k && row_masked);
+    return kv_visible(c, p.s, valid, p.win0, win1) || (!is_k && row_masked);
   };
 
   // The ring's jobs: K tiles 0 .. tiles - 1, then V tiles 0 .. tiles - 1,
@@ -357,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
 #pragma unroll
         for (int u = 1; u < kParts; ++u) sum += red_s[((warp + 4 * (u - 1)) * 4 + e) * 32 + lane];
         if (r < rows && hd < g)
-          s_s[hd * pl + base + r] = kv_visible(c, p.s, valid, p.win0, p.win1) ? sum * p.scale : PG_NEG_INF;
+          s_s[hd * pl + base + r] = kv_visible(c, p.s, valid, p.win0, win1) ? sum * p.scale : PG_NEG_INF;
       }
     }
     if (!visible) {
@@ -506,7 +510,9 @@ cudaError_t launch(DecodeParams p, cudaStream_t st) {
 // q (B,1,H,D); k/v cache (B,S,Hkv,D) with unit stride on D and the other
 // strides (in elements) given: bf16, or int8 when k_scale and v_scale (the
 // (B,S,Hkv) fp32 row scales, strides given) are not null. o (B,1,H,D)
-// contiguous bf16. One launch; returns its cudaError_t (0 on success).
+// contiguous bf16. The window is [win0, win1), or [win0, *win1_dev) when
+// win1_dev (a device int32) is not null. One launch; returns its
+// cudaError_t (0 on success).
 extern "C" int pg_decode_attention(const void* q, const void* k, const void* v, void* o,
                                    const int* valid, int b, int s, int h, int hkv, int d,
                                    long long q_sb, long long q_sh, long long k_sb, long long k_ss,
@@ -514,13 +520,13 @@ extern "C" int pg_decode_attention(const void* q, const void* k, const void* v, 
                                    const void* k_scale, const void* v_scale, long long ks_sb,
                                    long long ks_ss, long long ks_sh, long long vs_sb,
                                    long long vs_ss, long long vs_sh, int win0,
-                                   int win1, float scale, void* stream) {
+                                   int win1, const int* win1_dev, float scale, void* stream) {
   if ((k_scale == nullptr) != (v_scale == nullptr) || b < 1 || s < 1 || hkv < 1 || h % hkv || h / hkv > 8)
     return cudaErrorInvalidValue;
   DecodeParams p{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(o), valid, b, s, h, hkv, d, 0,
                  q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-                 ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh, win0, win1, scale};
+                 ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh, win0, win1, win1_dev, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return k_scale ? launch<true>(p, st) : launch<false>(p, st);
 }

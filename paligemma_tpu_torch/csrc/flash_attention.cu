@@ -24,15 +24,20 @@
 //     fragment layouts, so the softmax needs only shuffles within a lane
 //     quad and P goes from the score accumulators straight into the A
 //     operand of the PV product;
-//   - two tilings, chosen per call from the grid. While blocks of 64 query
-//     rows would leave SMs idle (the main path: 64 blocks for SigLIP, 40
-//     for Gemma, on 132 SMs), a block takes 32 query rows (128 and 72
-//     blocks) and 64-row kv tiles, and the two warps of a row pair each take
-//     32 of a tile's columns: each keeps its own softmax statistics, and at
-//     the end one rescales the other's (m, l, acc) to the larger maximum and
-//     adds it, through shared memory (one launch, no workspace). Once the
-//     grid fills the card (the long presets), a block takes 64 query rows
-//     and 32-row kv tiles, and as many blocks share an SM as fit;
+//   - two tilings, chosen per call from T and the heads (never the batch,
+//     so a row gives the same bits at every batch size). While blocks of
+//     64 query rows of one batch row would leave SMs idle (the main path:
+//     64 blocks for SigLIP, 40 for Gemma, on 132 SMs), a block takes 32
+//     query rows (128 and 72 blocks a batch row) and 64-row kv tiles, and
+//     the two warps of a row pair each take 32 of a tile's columns: they
+//     exchange each tile's row maxima through shared memory and keep one
+//     running maximum, each its own row sums and accumulators, and at the
+//     end one adds the other's (l, acc) to its own, through shared memory
+//     (one launch, no workspace). With one running maximum every P is
+//     rounded against the maximum of every column so far, as a single warp
+//     over the tile would round it. Once one batch row's blocks fill
+//     the card (the long presets), a block takes 64 query rows and 32-row
+//     kv tiles, and as many blocks share an SM as fit;
 //   - the TPU kernel's sequential k-block grid axis becomes a loop over kv
 //     tiles that arrive through a 2-stage cp.async ring: the copies of tile
 //     i + 1 are issued before tile i's products, K and V in separate commit
@@ -90,7 +95,9 @@ struct Tiles {
   static constexpr int kLds = DP + 8;               // shared row stride (bf16)
   static constexpr int kQBytes = kBlockQ * kLds * 2;
   static constexpr int kKVBytes = kBlockK * kLds * 2;  // one K or V tile
-  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes;
+  // The tile maxima the split warps exchange: per warp, per lane, 2 rows.
+  static constexpr int kMaxBytes = kSplit > 1 ? kWarps * 2 * 32 * 4 : 0;
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + kMaxBytes;
   // Blocks an SM must hold: 4 for the long-sequence tiling up to D = 80
   // (at most 128 registers, so that the long presets' SigLIP calls keep 16
   // warps an SM); else as many as registers and shared memory allow.
@@ -285,6 +292,26 @@ __global__ void __launch_bounds__(kThreads, (Tiles<DP, kRowWarps>::kMinBlocks))
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if constexpr (T::kSplit > 1) {
+      // The warps that split a tile's columns for the same rows take one
+      // running maximum: the tile's over all its columns, as one warp over
+      // the whole tile would. So every warp rounds its P against the same
+      // maximum, and the merge below rescales nothing. (The slots are free
+      // again: every read of the last tile's came before its V barrier.)
+      float* xs = reinterpret_cast<float*>(smem + T::kQBytes + 2 * kStages * T::kKVBytes);
+      xs[(warp * 2) * 32 + lane] = mx[0];
+      xs[(warp * 2 + 1) * 32 + lane] = mx[1];
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < T::kSplit; ++o) {
+        const int w = rw + o * kRowWarps;
+        mx[0] = fmaxf(mx[0], xs[(w * 2) * 32 + lane]);
+        mx[1] = fmaxf(mx[1], xs[(w * 2 + 1) * 32 + lane]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       const float m_new = fmaxf(m_i[r], mx[r]);
       alpha[r] = exp2f(m_i[r] - m_new);
       m_i[r] = m_new;
@@ -336,7 +363,8 @@ __global__ void __launch_bounds__(kThreads, (Tiles<DP, kRowWarps>::kMinBlocks))
     // Merge: the warps of kv columns sp > 0 leave (m, l, acc) in shared
     // memory (over the K/V stages, lane-major: conflict-free), and warp sp
     // = 0 of the same rows, whose lanes hold the same fragment positions,
-    // rescales each part to the larger maximum and adds them in order.
+    // adds them in order (each part rescaled to the larger maximum: the
+    // maxima are equal, the shared running maximum's, so by exactly 1).
     constexpr int kPart = (DP / 2 + 4) * 32;  // floats a warp leaves
     float* parts = reinterpret_cast<float*>(smem + T::kQBytes);
     __syncthreads();  // every warp is done with the last tile
@@ -409,14 +437,16 @@ cudaError_t launch(const FlashParams& p, int b, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// 64 query rows a block (4 warps of rows, 32-row kv tiles) once those
-// blocks fill every SM; else 32 (2 warps of rows, each pair splitting
-// 64-row kv tiles), which doubles the blocks while the grid leaves SMs
-// idle.
+// 64 query rows a block (4 warps of rows, 32-row kv tiles) once the
+// blocks of one batch row fill every SM; else 32 (2 warps of rows, each
+// pair splitting 64-row kv tiles), which doubles the blocks while the grid
+// leaves SMs idle. The two tilings sum a row's kv tiles in different
+// orders, so the choice reads T and H only, never the batch: a row's
+// output is the same bits at every batch size.
 template <int DP>
 cudaError_t launch_rows(const FlashParams& p, int b, cudaStream_t stream) {
-  return (long long)((p.t + 63) / 64) * p.h * b >= sm_count() ? launch<DP, 4>(p, b, stream)
-                                                                : launch<DP, 2>(p, b, stream);
+  return (long long)((p.t + 63) / 64) * p.h >= sm_count() ? launch<DP, 4>(p, b, stream)
+                                                            : launch<DP, 2>(p, b, stream);
 }
 
 }  // namespace

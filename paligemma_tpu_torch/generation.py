@@ -138,19 +138,22 @@ def _buffers(cache: KVCache) -> tuple:
 
 
 class _Captured:
-    """What the prefill and decode runners share: a function on one cache's
-    buffers, captured on a CUDA cache as a CUDA graph, and the counts each
-    replay adds. Holds no reference to the cache, and the model only weakly,
-    to tell whether it is still the one the graph reads."""
+    """What the graph runners share (the prefill and decode runners here,
+    batched serving's step, the ablation's no-cache step): a function on one
+    cache's buffers (or on buffers of its own, ``cache`` None), captured on
+    a CUDA device as a CUDA graph, and the counts each replay adds. Holds no
+    reference to the cache, and the model only weakly, to tell whether it is
+    still the one the graph reads."""
 
-    def __init__(self, model: PaliGemma, cache: KVCache, fns: KernelFns):
-        self.model_ref, self.buffers, self.fns = weakref.ref(model), _buffers(cache), fns
+    def __init__(self, model: PaliGemma, cache: Optional[KVCache], fns: KernelFns):
+        self.model_ref, self.fns = weakref.ref(model), fns
+        self.buffers = () if cache is None else _buffers(cache)
         self.graph, self.counts, self.capture_ms = None, {}, 0.0
 
     def serves(self, model: PaliGemma, cache: KVCache) -> bool:
         return self.model_ref() is model and self.buffers == _buffers(cache)
 
-    def _capture(self, cache: KVCache, run: Callable, restore: Optional[Callable] = None,
+    def _capture(self, dev: torch.device, run: Callable, restore: Optional[Callable] = None,
                  generator: Optional[torch.Generator] = None, count_warm_up: bool = False):
         """Run ``run()`` once on a side stream (PyTorch's warm-up: lazy
         set-up such as cuBLAS handles, workspaces and first loads happens
@@ -158,7 +161,6 @@ class _Captured:
         call ``restore()`` again. The capture's counts are what a replay
         adds; the warm-up's stay counted with ``count_warm_up``. Returns
         (the warm-up's result, the captured run's: the graph's outputs)."""
-        dev = cache.k.device
         t0 = time.perf_counter()
         before = kernels.call_counts()
         side = torch.cuda.Stream(dev)
@@ -228,7 +230,7 @@ class _PrefillRunner(_Captured):
                 cache.host_length = 0
                 return _prefill(model, self.ids, self.pix, cache, self.fns)
 
-            logits, self.logits = self._capture(cache, run, count_warm_up=True)
+            logits, self.logits = self._capture(cache.k.device, run, count_warm_up=True)
             return logits
         self.ids.copy_(input_ids)
         self.pix.copy_(pixel_values)
@@ -361,7 +363,7 @@ class _DecodeRunner(_Captured):
                 cache.valid.copy_(valid)
                 cache.host_length = host_length
 
-            self._capture(cache, lambda: self._step(model, cache), restore, self.state.generator)
+            self._capture(dev, lambda: self._step(model, cache), restore, self.state.generator)
 
     def _step(self, model, cache) -> None:
         _decode_step(model, cache, self.state, self.fns, self.do_sample, self.freeze)

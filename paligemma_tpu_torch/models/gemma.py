@@ -19,7 +19,9 @@ final RMSNorm, fp32 logits through the tied embedding.
 - Decode (T == 1) attends over the whole cache buffer with
   ``decode_attention``; unwritten slots are masked by the per-row valid
   length, a preallocated (B,) int32 device tensor set from the device
-  length.
+  length, or by the caller's ``LengthMask`` (batched serving).
+- Without a cache, ``forward`` is the full bidirectional pass of the
+  no-cache ablation arm, under an optional per-row ``LengthMask``.
 - The int8 cache (``QuantKVCache``, ``init_cache(dtype=torch.int8)``) keeps
   each written K and V row as int8 with one fp32 scale
   (``quantize_kv_rows``). Prefill still attends over its fresh, unquantized
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paligemma_tpu_torch.config import GemmaConfig
+from paligemma_tpu_torch.ops.attention import LengthMask
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, geglu, quantize_rows_s8_rcp
 from paligemma_tpu_torch.ops.norms import rms_norm
@@ -147,7 +150,8 @@ class GemmaLayer(nn.Module):
         self.gate_up = nn.Linear(d, 2 * i, bias=False, dtype=dtype)  # fused gate | up
         self.down = nn.Linear(i, d, bias=False, dtype=dtype)
 
-    def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns):
+    def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
+                  mask: Optional[LengthMask] = None):
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -156,6 +160,8 @@ class GemmaLayer(nn.Module):
         k = apply_rope(k.view(b, t, hkv, hd), cos, sin)
         v = v.view(b, t, hkv, hd)
         scale = hd**-0.5
+        window = {} if mask is None else {
+            "valid_len": mask.valid, "gen_start": mask.gen_start, "gen_end": mask.gen_end}
         if cache is not None:
             # In place at the device positions ``pos`` (T,) int64.
             k_st, v_st, row_scales = k, v, {}
@@ -167,11 +173,13 @@ class GemmaLayer(nn.Module):
             cache.k[li].index_copy_(1, pos, k_st.to(cache.k.dtype))
             cache.v[li].index_copy_(1, pos, v_st.to(cache.v.dtype))
             if t == 1:
-                out = fns.decode(q, cache.k[li], cache.v[li], cache.valid, scale=scale, **row_scales)
+                window = {"valid_len": cache.valid, **window}
+                out = fns.decode(q, cache.k[li], cache.v[li], scale=scale, **window, **row_scales)
                 return proj(out.reshape(b, t, h * hd), self.o, fns)
-        # Prefill: bidirectional over the fresh, unquantized K/V only (exact:
-        # nothing else is visible yet).
-        out = fns.flash(q, k, v, scale=scale)
+        # Prefill, or the pass without a cache: bidirectional over the fresh,
+        # unquantized K/V only (exact: nothing else is visible yet), under
+        # the per-row mask when there is one (right-padded rows).
+        out = fns.flash(q, k, v, scale=scale, **window)
         return proj(out.reshape(b, t, h * hd), self.o, fns)
 
     def mlp(self, x: torch.Tensor, fns: KernelFns) -> torch.Tensor:
@@ -182,8 +190,9 @@ class GemmaLayer(nn.Module):
             gu_w, dn_w = self.gate_up_i8, self.down_i8  # matrix-shaped calls
         return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
 
-    def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns):
-        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns)
+    def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
+                mask: Optional[LengthMask] = None):
+        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask)
         return h + self.mlp(self.post_ln(h), fns)
 
 
@@ -212,6 +221,7 @@ def forward(
     positions: torch.Tensor,
     cache: Optional[KVCache] = None,
     fns: KernelFns = KERNELS,
+    mask: Optional[LengthMask] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
@@ -219,6 +229,15 @@ def forward(
     With a cache, K/V are written at the device ``cache.length``; T == 1
     decodes over the cache, T > 1 is a prefill into an empty cache. Nothing
     is read back from the device: the checks use ``cache.host_length``.
+    Without a cache, T positions attend to each other bidirectionally (the
+    reference's no-cache pass).
+
+    ``mask`` (an ``ops.attention.LengthMask``): row b sees kv positions
+    ``[0, valid[b]) ∪ [gen_start, gen_end)``. On a prefill or the pass
+    without a cache it masks each row's right padding (the window is
+    empty); on a decode step it replaces the cache's own visible length
+    (batched serving: each row's prompt plus the shared generated window,
+    whose end may be a device tensor). None: every written position.
     """
     cfg = model.cfg
     dtype = inputs_embeds.dtype
@@ -237,7 +256,7 @@ def forward(
         pos = cache.length + torch.arange(t, dtype=torch.int64, device=cache.length.device)
         cache.valid.copy_((cache.length + t).expand(b))
     for li, layer in enumerate(model.layers):
-        h = layer(h, cos, sin, cache, pos, li, fns)
+        h = layer(h, cos, sin, cache, pos, li, fns, mask)
     if cache is not None:
         cache.length.add_(t)
         cache.host_length += t

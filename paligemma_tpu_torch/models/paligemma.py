@@ -10,6 +10,8 @@
   ``jnp.take`` clamps).
 - Prefill positions are 0..T-1; a decode step sits at position = cache
   length, read on the device (nothing goes back to the host).
+- ``forward_nocache`` is the KV-cache-off ablation arm: the full
+  bidirectional pass over a (padded) buffer, positions 0..T-1.
 
 Every function takes ``fns``, the kernel functions to run
 (``ops.kernels.KernelFns``); the default dispatches to the CUDA kernels on a
@@ -17,7 +19,7 @@ CUDA tensor, ``ops.kernels.PLAIN`` runs the plain versions.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,6 +28,7 @@ from paligemma_tpu_torch.config import PaliGemmaConfig
 from paligemma_tpu_torch.models import gemma, siglip
 from paligemma_tpu_torch.models.gemma import GemmaModel, KVCache, RMSNorm
 from paligemma_tpu_torch.models.siglip import LayerNorm, SiglipVisionModel, linear
+from paligemma_tpu_torch.ops.attention import make_length_mask
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 
 
@@ -122,3 +125,26 @@ def decode_step(
     embeds = gemma.embed_tokens(model.llm, token)
     hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns)
     return gemma.logits(model.llm, hidden, fns), cache
+
+
+def forward_nocache(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    valid_len: Optional[torch.Tensor] = None,
+    fns: KernelFns = KERNELS,
+) -> torch.Tensor:
+    """Cache-free full forward for the KV-cache-off ablation arm: fp32
+    logits (B, T, V).
+
+    The reference's no-cache loop body: full bidirectional attention over
+    the whole (padded) sequence, positions 0..T-1. ``valid_len`` ((B,) int32
+    on the device, or None: all T) masks the padding slots, so one padded
+    buffer serves every step; positions past it are don't-cares.
+    """
+    b, t = input_ids.shape
+    embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, fns))
+    positions = torch.arange(t, dtype=torch.int32, device=input_ids.device).expand(b, t)
+    mask = None if valid_len is None else make_length_mask(valid_len, batch=b, device=input_ids.device)
+    hidden, _ = gemma.forward(model.llm, embeds, positions, None, fns, mask=mask)
+    return gemma.logits(model.llm, hidden, fns)

@@ -22,7 +22,10 @@ times ``scale``, invisible positions set to ``NEG_INF``, and
   scales each cast to the query dtype, their product rounded to it.
 
 Visibility follows ``ops.attention.LengthMask``: batch row ``b`` sees kv
-positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``.
+positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``. The plain versions
+take each window bound as a host int or a one-element tensor on any device;
+the flash kernel takes host ints, the decode kernel a host ``gen_start``
+and a host or device ``gen_end``.
 """
 from __future__ import annotations
 
@@ -55,6 +58,26 @@ def _window(gen_start: Window, gen_end: Window) -> Tuple[int, int]:
     return out[0], out[1]
 
 
+def _device_window_end(gen_end: Window, q: torch.Tensor) -> Optional[torch.Tensor]:
+    """``gen_end`` as the decode kernel reads it on the device: a one-element
+    int32 tensor on q's device, or None when it is a host value."""
+    if not isinstance(gen_end, torch.Tensor) or gen_end.device.type == "cpu":
+        return None
+    if gen_end.device != q.device or gen_end.dtype != torch.int32 or gen_end.numel() != 1:
+        raise ValueError(f"decode_attention: a device gen_end must be one int32 on {q.device}")
+    return gen_end.reshape(1).contiguous()
+
+
+def _plain_bound(x: Window) -> Union[int, torch.Tensor]:
+    """A window bound for the plain versions: 0 for None, a host int, or a
+    one-element tensor on any device, compared on the device."""
+    if x is None:
+        return 0
+    if isinstance(x, torch.Tensor):
+        return x.reshape(())
+    return int(x)
+
+
 def _valid(valid_len: ValidLen, b: int, s_len: int, device) -> torch.Tensor:
     """(B,) int32 visible-prefix lengths on ``device``."""
     if valid_len is None:
@@ -77,7 +100,7 @@ def _masked_scores(
     s_len, hkv = k.shape[1], k.shape[2]
     scale = d**-0.5 if scale is None else scale
     valid = _valid(valid_len, b, s_len, q.device)
-    mask = LengthMask(valid, *_window(gen_start, gen_end)).materialize(s_len)
+    mask = LengthMask(valid, _plain_bound(gen_start), _plain_bound(gen_end)).materialize(s_len)
     qg = q.reshape(b, t, hkv, h // hkv, d)
     return torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale + mask
 
@@ -223,7 +246,9 @@ def decode_attention(
     positions (25600 at 8 query heads a kv head and head_dim 256) raises a
     ``ValueError`` before any launch. The result depends on the visible
     rows, not on S: the same q and visible rows in a longer buffer give the
-    same bits.
+    same bits. ``gen_start`` is a host int; ``gen_end`` a host int or a
+    one-element int32 tensor on q's device, which the kernel reads there
+    (batched serving's window end moves every step of a captured graph).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(
@@ -253,7 +278,8 @@ def decode_attention(
             f"{decode_max_len(h // hkv, d)}"
         )
     scale = d**-0.5 if scale is None else scale
-    win = _window(gen_start, gen_end)
+    win_end = _device_window_end(gen_end, q)
+    win = _window(gen_start, None if win_end is not None else gen_end)
     valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
@@ -266,7 +292,8 @@ def decode_attention(
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         *((k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(), *v_scale.stride())
           if kv8 else (None, None, 0, 0, 0, 0, 0, 0)),
-        win[0], win[1], float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        win[0], win[1], None if win_end is None else win_end.data_ptr(), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, "decode_attention", rc)
     decode_attention.launches += 1

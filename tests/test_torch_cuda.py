@@ -43,14 +43,16 @@ def _rand(gen, shape, dev):
     (1, 100, 8, 1, 256, [61]),
     (2, 77, 4, 2, 64, [77, 20]),
     # The tile edges: 32-row query blocks with warp pairs splitting 64-row
-    # kv tiles (small grids), 64-row query blocks with 32-row kv tiles
-    # (grids that fill the card).
+    # kv tiles (one batch row's grid is small), 64-row query blocks with
+    # 32-row kv tiles (one batch row's grid fills the card).
     (1, 63, 16, 16, 72, None),
     (1, 64, 8, 1, 256, None),
     (1, 65, 8, 1, 256, [40]),
     (1, 129, 4, 2, 8, None),
     (4, 129, 16, 16, 72, [129, 64, 65, 1]),
     (9, 65, 8, 1, 256, None),
+    (2, 129, 48, 48, 72, [129, 64]),
+    (3, 65, 72, 9, 256, None),
 ])
 def test_flash_kernel_matches_plain(cuda, b, t, h, hkv, d, valid):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -66,7 +68,8 @@ def test_flash_kernel_matches_plain(cuda, b, t, h, hkv, d, valid):
 
 @pytest.mark.parametrize("b,t,h,hkv,d,valid", [
     (1, 300, 8, 1, 256, 70),    # kv tiles 2-4 of 64 rows wholly masked
-    (4, 300, 8, 1, 256, 5),     # 64-row query blocks, 32-row kv tiles
+    (4, 300, 8, 1, 256, 5),
+    (4, 300, 32, 4, 256, 5),    # 64-row query blocks, 32-row kv tiles
     (1, 200, 4, 4, 72, 20),
 ])
 def test_flash_kernel_ignores_masked_kv_tiles(cuda, b, t, h, hkv, d, valid):
@@ -548,3 +551,143 @@ def test_prefill_graph_is_the_eager_prefill_bit_for_bit(cuda, kv_int8):
     got, fresh = generation.prefill(model, prompts[1], pix, fresh)
     assert torch.equal(got, want)
     assert all(torch.equal(x, ref[name]) for name, x in _cache_tensors(fresh).items())
+
+
+# ---------------------------------------------------------------------------
+# Batched serving, the no-cache pass and checkpoint loading on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("b,s,valid,window", [
+    (4, 340, [276, 250, 263, 276], (276, 300)),  # batched decode: each row's prompt + the shared window
+    (1, 308, [292], (292, 300)),
+    (2, 4128, [40, 4000], (4050, 4100)),         # a cluster of 16 blocks
+])
+def test_decode_window_end_on_the_device_is_the_host_window(cuda, kv_int8, b, s, valid, window):
+    """The window's end read on the device gives the host int's bits, also
+    from a captured graph whose end moves between replays, and within the
+    plain version's bar; rows past the end are never read."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = _rand(gen, (b, 1, 8, 256), cuda)
+    k, v = _rand(gen, (2, b, s, 1, 256), cuda), _rand(gen, (2, b, s, 1, 256), cuda)
+    kw = {}
+    if kv_int8:
+        (k, ks), (v, vs) = gemma.quantize_kv_rows(k), gemma.quantize_kv_rows(v)
+        kw = {"k_scale": ks[1], "v_scale": vs[1]}
+    k, v = k[1], v[1]  # a layer of a stacked cache
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    w0, w1 = window
+    end = torch.tensor(w1, dtype=torch.int32, device=cuda)
+    host = ca.decode_attention(q, k, v, vl, gen_start=w0, gen_end=w1, **kw)
+    dev = ca.decode_attention(q, k, v, vl, gen_start=w0, gen_end=end, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dev, host)
+    torch.testing.assert_close(dev, ca.decode_attention_plain(q, k, v, vl, gen_start=w0, gen_end=end, **kw),
+                               rtol=RTOL, atol=ATOL)
+    poisoned = k.clone(), v.clone()
+    for c in poisoned:
+        c[:, w1:] = 100
+    assert torch.equal(ca.decode_attention(q, *poisoned, vl, gen_start=w0, gen_end=end, **kw), host)
+
+    graph = torch.cuda.CUDAGraph()
+    ca.decode_attention(q, k, v, vl, gen_start=w0, gen_end=end, **kw)  # warm-up
+    with torch.cuda.graph(graph):
+        out = ca.decode_attention(q, k, v, vl, gen_start=w0, gen_end=end, **kw)
+    for e in (w0 + 1, w1 - 3, w1):
+        end.fill_(e)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ca.decode_attention(q, k, v, vl, gen_start=w0, gen_end=e, **kw))
+
+
+@pytest.mark.parametrize("t,h,hkv,d,valid", [
+    (276, 8, 1, 256, [276, 250, 263, 200]),  # batched prefill of the 224-px prompts
+    (512, 8, 1, 256, [276, 276, 300, 512]),  # the ablation's prompt bucket at 224 px
+    (256, 16, 16, 72, None),                 # SigLIP at 224 px
+    (129, 48, 48, 72, [129, 64, 100, 1]),    # 64-row query blocks at every batch size
+])
+def test_flash_row_is_bit_identical_at_every_batch_size(cuda, t, h, hkv, d, valid):
+    """Each row of a batch-4 call gives the bits of the batch-1 call on that
+    row: the tiling never depends on the batch."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = _rand(gen, (4, t, h, d), cuda), _rand(gen, (4, t, hkv, d), cuda), _rand(gen, (4, t, hkv, d), cuda)
+    vl = None if valid is None else torch.tensor(valid, dtype=torch.int32, device=cuda)
+    out = ca.flash_attention(q, k, v, vl)
+    for i in range(4):
+        one = ca.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], None if vl is None else vl[i:i + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(out[i:i + 1], one)
+
+
+def _tiny_served(cuda):
+    """A tiny bf16 model whose SigLIP head_dim the kernels take, its byte
+    processor, four images and four prompts of different lengths."""
+    import numpy as np
+    from PIL import Image
+
+    from paligemma_tpu_torch.processing import ByteTokenizer, PaliGemmaProcessor, align_config
+
+    cfg = paligemma_tpu_torch.tiny_config()
+    cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, hidden_size=32, intermediate_size=64))
+    proc = PaliGemmaProcessor(ByteTokenizer(), cfg.vision_config.num_image_tokens, cfg.vision_config.image_size)
+    cfg = align_config(cfg, proc)
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():  # a final norm that makes greedy streams change token
+        model.llm.final_norm.weight.normal_(0.0, 2.0, generator=torch.Generator(device=cuda).manual_seed(5))
+    rng = np.random.RandomState(0)
+    images = [Image.fromarray(rng.randint(0, 256, (40, 30 + 5 * i, 3), dtype=np.uint8)) for i in range(4)]
+    images[3] = images[0]
+    prompts = ["describe", "what is the total revenue?", "caption en", "describe"]  # the last repeats the first
+    return model, proc, images, prompts
+
+
+def test_batch_generate_on_the_card_gives_each_row_its_batch1_first_token(cuda):
+    from paligemma_tpu_torch import serving
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    layers = model.cfg.text_config.num_hidden_layers
+    before = kernels.launch_counts()
+    _, rows = serving.batch_generate(model, proc, prompts, images, max_new_tokens=9, eos_token_id=-1,
+                                     return_tokens=True)
+    counts = {k: v - before[k] for k, v in kernels.launch_counts().items()}
+    # One prefill (the capture's warm-up step is not counted), then 16 replays.
+    assert counts["decode_attention"] == 16 * layers
+    _, plain_rows = serving.batch_generate(model, proc, prompts, images, max_new_tokens=9, eos_token_id=-1,
+                                           return_tokens=True, fns=PLAIN)
+    for i, (prompt, image) in enumerate(zip(prompts, images)):
+        out = proc(text=[prompt], images=[image])
+        ids = torch.from_numpy(out["input_ids"]).to(cuda)
+        pix = torch.from_numpy(out["pixel_values"]).to(cuda, torch.bfloat16)
+        one, _ = generation.generate(model, ids, pix, 9, -1, stop_at_eos=False)
+        assert rows[i][0] == one[0] == plain_rows[i][0]
+    assert rows[0] == rows[3]  # the repeated request
+
+
+def test_forward_nocache_kernel_path_matches_plain_and_ignores_the_padding(cuda):
+    model, proc, images, prompts = _tiny_served(cuda)
+    out = proc(text=[prompts[1]], images=[images[1]])
+    t0 = out["input_ids"].shape[1]
+    buf = torch.zeros((1, t0 + 20), dtype=torch.int32, device=cuda)
+    buf[:, :t0] = torch.from_numpy(out["input_ids"]).to(cuda)
+    pix = torch.from_numpy(out["pixel_values"]).to(cuda, torch.bfloat16)
+    valid = torch.tensor([t0], dtype=torch.int32, device=cuda)
+    got = paligemma.forward_nocache(model, buf, pix, valid)[0, t0 - 1]
+    want = paligemma.forward_nocache(model, buf, pix, valid, PLAIN)[0, t0 - 1]
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    buf[:, t0:] = 7  # other tokens in the padding: the valid positions do not see them
+    assert torch.equal(paligemma.forward_nocache(model, buf, pix, valid)[0, t0 - 1], got)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_checkpoint_loads_onto_the_card(cuda, tmp_path, streaming):
+    from paligemma_tpu_torch.utils import checkpoint
+
+    model, _, _, _ = _tiny_served(cuda)
+    checkpoint.save_hf_checkpoint(model, str(tmp_path), max_shard_bytes=200_000)
+    loaded, cfg = checkpoint.load_model(str(tmp_path), streaming=streaming)
+    assert cfg == model.cfg
+    want = model.state_dict()
+    assert all(t.is_cuda and t.dtype == torch.bfloat16 and torch.equal(t, want[k])
+               for k, t in loaded.state_dict().items())
