@@ -23,7 +23,13 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    dequantized cache; one q and one set of visible rows (292, then 1000)
    poisoned past them in caches of each length from 308 (1024) to 4128
    give one output bit for bit, bf16 and int8 cache; a 30000-position
-   cache raises ValueError before any launch. The quant kernels
+   cache raises ValueError before any launch. Decode attention's verify
+   shape (T in 2, 4, 8, 13, 16 queries a row, query i seeing valid + i
+   positions; bf16 and int8 cache; S = 308, 1100, 4128; batch 1 and batch
+   2 with per-row valid lengths; poisoned past the last query's positions):
+   each query row bit for bit the one-query kernel at valid + i, the whole
+   within the plain version's bar; T = 17 raises ValueError before any
+   launch. The quant kernels
    (q8_matmul, q4_matmul, w4a8_gemv, w4a8_geglu, quant_rows and the
    mlp_w4a8 they make up) at every decode shape of the 3B model, at 64 and
    276 rows, at the flat q4a8_matmul shapes, at ragged rows and widths, at
@@ -63,7 +69,8 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
    the card's memory rate and its operations over the peak rate of their
    type) and the time of one PyTorch call that computes the same function,
    where there is one (never called by the port); flash also at the 448-
-   and 896-px presets' lengths.
+   and 896-px presets' lengths; decode attention also in the verify shape
+   (T = 8 at S = 308 and 1100, SDPA with the boolean threshold mask beside).
 7. Decode as a CUDA graph (run after phase 5, before the timing), with the
    final norm's scale redrawn so that greedy streams change token
    (``phase_graph``): in bf16 and in each quantized arm, request 0:
@@ -117,7 +124,20 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     width, launches the code's; the first token identical across arms and
     the first uncached step's logits within 2% of the cached prefill's;
     the match count, ms/token and peak memory per arm.
-12. CLI: ``inference_torch.py --demo`` as a subprocess, exit 0 on cuda.
+12. CLI: ``inference_torch.py --demo`` as a subprocess, plain and with
+    ``--speculative``, exit 0 on cuda.
+13. Speculative decoding (after phase 7; ``phase_speculative``): request 0
+    through ``generate_spec`` (k = 8, n = 3, the n-gram and the
+    longest-match drafter) in bf16 on the seeded model (a stream that
+    repeats one token: acceptance), then with the final norm redrawn as in
+    phase 7, in bf16 and in every quantized arm: ``verify_step``'s k logits
+    rows within phase 5's bar of k sequential ``decode_step`` calls; the
+    spec tokens ``generate``'s up to the first position where the two
+    paths' argmaxes differ, where the sequential step's top two logits lie
+    within that bar of each other; launches the code's (each verify
+    iteration one forward of k rows); ``tokens_per_verify`` and host
+    ms/token of a ``decode_steps_spec`` chunk against a ``decode_steps``
+    chunk; sampled, one seed one stream and temperature 0 the greedy one.
 
 Phase 3 also holds batched serving's decode (batch 4, per-row valid, the
 window's end read on the device: bit for bit the host end's, also from a
@@ -232,6 +252,9 @@ FLASH_CASES = [
 # (phase 3): valid, the cache lengths (clusters of 8 and 16 blocks, one and
 # more tiles a block).
 DECODE_LENGTH_CASES = [(292, (308, 320, 384, 512, 1100, 4128)), (1000, (1024, 1100, 4128))]
+# The decode kernel's verify shape (phase 3): queries a row, cache lengths.
+VERIFY_QUERIES = (2, 4, 8, 13, 16)
+VERIFY_LENGTHS = (308, 1100, 4128)
 # The q8/q4 GEMV's edge cases (phase 3): rows of x, output rows, depth.
 GEMV_EDGE_ROWS = (1, 2, 3, 8, 9, 33, 64)
 GEMV_EDGE_OUT = (200, 201, 2560)
@@ -471,6 +494,62 @@ def phase_kernels(torch):
             f"to its batch-1 call: {same}")
         check(ok and same, f"flash {name}: kernel disagrees or a row depends on the batch")
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
+
+    # The verify shape: T queries a row, query i seeing valid + i
+    # positions. Each query row bit for bit the one-query kernel at valid + i,
+    # the whole within the plain version's bar and blind to a poisoned tail
+    # past the last query's positions; bf16 and int8 cache, batch 1 and
+    # batch 2 with per-row valid lengths (batch 1's last queries reach S).
+    for kv in ("bf16", "int8"):
+        for s_len in VERIFY_LENGTHS:
+            for valid in ([s_len - 8], [s_len - 40, s_len // 2]):
+                b = len(valid)
+                q_all = _rand(torch, gen, (b, max(VERIFY_QUERIES), 8, 256), dev)
+                k, v = (_rand(torch, gen, (3, b, s_len, 1, 256), dev) for _ in range(2))
+                kw = dict(scale=256**-0.5)
+                if kv == "int8":
+                    (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+                    kw.update(k_scale=ks[1], v_scale=vs[1])
+                k, v = k[1], v[1]  # a layer of a stacked cache
+                vt = torch.tensor(valid, dtype=torch.int32, device=dev)
+                worst, all_ok, rows_same, poison_same = 0.0, True, True, True
+                for t in VERIFY_QUERIES:
+                    q = q_all[:, :t]
+                    out = ca.decode_attention(q, k, v, vt, **kw)
+                    rows_same = rows_same and all(
+                        torch.equal(out[:, i:i + 1], ca.decode_attention(q[:, i:i + 1], k, v, vt + i, **kw))
+                        for i in range(t))
+                    err, ok = _close(torch, out, ca.decode_attention_plain(q, k, v, vt, **kw))
+                    worst, all_ok = max(worst, err), all_ok and ok
+                    pk, pv = k.clone(), v.clone()
+                    pkw = dict(kw)
+                    if kv == "int8":
+                        pkw.update(k_scale=kw["k_scale"].clone(), v_scale=kw["v_scale"].clone())
+                    for r, n_vis in enumerate(valid):
+                        end = n_vis + t - 1  # the last query's visible length
+                        pk[r, end:], pv[r, end:] = (1e4, 1e4) if kv == "bf16" else (127, 127)
+                        if kv == "int8":
+                            pkw["k_scale"][r, end:], pkw["v_scale"][r, end:] = 1e4, 1e4
+                    poison_same = poison_same and torch.equal(ca.decode_attention(q, pk, pv, vt, **pkw), out)
+                torch.cuda.synchronize()
+                log(f"[kernel] {'decode_attention':16s} {f'verify {kv} S={s_len} valid={valid} T in {VERIFY_QUERIES}':60s} "
+                    f"max_abs_err {worst:.3e} | each query row bit-identical to the one-query kernel at valid + i: "
+                    f"{rows_same} | poisoned tail unchanged: {poison_same}")
+                check(all_ok and rows_same and poison_same,
+                      f"verify-shape decode {kv} S={s_len} valid={valid}: kernel disagrees")
+                max_err["decode_attention"] = max(max_err["decode_attention"], worst)
+    kc, vc = _rand(torch, gen, (1, 308, 1, 256), dev), _rand(torch, gen, (1, 308, 1, 256), dev)
+    before = ca.launch_counts()["decode_attention"]
+    try:
+        ca.decode_attention(_rand(torch, gen, (1, 17, 8, 256), dev), kc, vc,
+                            torch.tensor([290], dtype=torch.int32, device=dev))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    launched = ca.launch_counts()["decode_attention"] - before
+    log(f"[kernel] {'decode_attention':16s} T=17 raises ValueError before any launch ({launched} launches): "
+        f"{raised!r}")
+    check(raised is not None and launched == 0, "decode T=17: no ValueError before the launch")
 
     # A cache longer than the kernel's shared memory holds raises on the
     # host, before any launch.
@@ -977,6 +1056,28 @@ def phase_timing(torch, prompt_len):
                  lambda i: ca.decode_attention_plain(q, kc, vc, valid4, 256**-0.5, prompt_len, end),
                  lambda i: sdpa(*lib, attn_mask=seen[:, None, None, :], scale=256**-0.5),
                  (2 * 2 * 4 * 8 * 256 + 2 * 2 * n_seen * 256, 4 * 8 * n_seen * 256, "bf16")))
+    # The verify shape (a speculative verify step of k = 8 tokens: query i
+    # sees valid + i positions) at the main path's length and about the
+    # 448-px preset's; not in the per-launch mean. SDPA takes the same
+    # visibility as a boolean threshold mask over the visible rows (the
+    # port never calls it). Bytes: q and out, and the K/V rows visible to
+    # the last query, once.
+    t = 8
+    for s_len, valid in ((s_main, prompt_len + MAX_NEW_TOKENS // 2), (1100, 1100 - t)):
+        v_args = (_rand(torch, gen, (1, t, 8, 256), dev), *(_rand(torch, gen, (18, 1, s_len, 1, 256), dev)[9]
+                                                          for _ in range(2)),
+                  torch.tensor([valid], dtype=torch.int32, device=dev))
+        n_vis = valid + t - 1
+        v_seen = (torch.arange(n_vis, device=dev)[None, :]
+                  < (valid + torch.arange(t, device=dev)).repeat_interleave(8)[:, None])
+        v_lib = [v_args[0].reshape(1, 1, t * 8, 256), v_args[1][:, :n_vis].reshape(1, 1, n_vis, 256).contiguous(),
+                 v_args[2][:, :n_vis].reshape(1, 1, n_vis, 256).contiguous()]
+        seen_rows = int(v_seen.sum()) // 8  # query-row visible positions, summed over the T queries
+        rows.append((f"verify T={t} S={s_len} valid={valid} H=8 Hkv=1 D=256", 0,
+                     lambda i, a=v_args: ca.decode_attention(*a, scale=256**-0.5),
+                     lambda i, a=v_args: ca.decode_attention_plain(*a, scale=256**-0.5),
+                     lambda i, a=v_lib, m=v_seen: sdpa(*a, attn_mask=m[None, None], scale=256**-0.5),
+                     (2 * 2 * t * 8 * 256 + 2 * 2 * n_vis * 256, 4 * 8 * seen_rows * 256, "bf16")))
     result["decode_attention"] = _time_rows(torch, "decode_attention", rows,
                                             library="F.scaled_dot_product_attention (bf16 cache only)")
 
@@ -1177,7 +1278,7 @@ def phase_timing(torch, prompt_len):
     return result
 
 
-def _expected_launches(cfg, qargs, prompt_len, n_dec, batch=1):
+def _expected_launches(cfg, qargs, prompt_len, n_dec, batch=1, verify=(0, 0)):
     """The launches the code implies for one request (and the a8_matmul
     calls): the attention kernels only for the bf16 model (``qargs`` None);
     else per forward of R rows, in every layer, int4: qkv, o, gate_up and
@@ -1185,21 +1286,27 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec, batch=1):
     prefill_a8 and R >= A8_MIN_SEQ; the MLP through mlp_w4a8 when w4a8 and
     R <= the fused row limit (w4a8_geglu and a w4a8_gemv launch up to the
     prologue's rows, else two quant_rows and two w4a8_gemv launches), else
-    two more such int8 projections; one lm_head row per forward, 4-bit (one
-    w4a8_gemv launch with the quantizing prologue) with lm_head_w4, else q8
-    on the int8 embedding. The int8 cache changes no count. ``batch`` rows:
-    a forward of R rows a row is one of batch x R rows (batched serving's
-    prefill takes its lm_head on the rows' last positions, one call)."""
+    two more such int8 projections; the lm_head on one row a batch row per
+    forward (a verify step: on its k rows), 4-bit with lm_head_w4 (one
+    w4a8_gemv launch, with the quantizing prologue up to its rows, else a
+    quant_rows launch first), else q8 on the int8 embedding. The int8 cache
+    changes no count. ``batch`` rows: a forward of R rows a row is one of
+    batch x R rows (batched serving's prefill takes its lm_head on the rows'
+    last positions, one call). ``verify`` = (iterations, k): that many
+    speculative verify forwards of k rows, each one decode_attention launch
+    a layer (its k queries in one launch)."""
     from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, W4A8_PROLOGUE_MAX_ROWS
     from paligemma_tpu_torch.quantization import A8_MIN_SEQ
 
     n_layers = cfg.text_config.num_hidden_layers
+    n_verify, k = verify
     want = collections.Counter(flash_attention=cfg.vision_config.num_hidden_layers + n_layers,
-                               decode_attention=n_layers * n_dec)
+                               decode_attention=n_layers * (n_dec + n_verify))
     if qargs is None:
         return want
     mode, lm_head_w4 = qargs["mode"], qargs.get("lm_head_w4", False)
-    for rows in [batch * prompt_len] + [batch] * n_dec:
+    forwards = [(batch * prompt_len, batch)] + [(batch, batch)] * n_dec + [(batch * k, batch * k)] * n_verify
+    for rows, lm_rows in forwards:
         int8_proj = "a8_matmul" if qargs.get("prefill_a8") and rows >= A8_MIN_SEQ else "q8_matmul"
         if mode == "int4":
             want["q4_matmul"] += 4 * n_layers
@@ -1213,8 +1320,9 @@ def _expected_launches(cfg, qargs, prompt_len, n_dec, batch=1):
                 want["w4a8_gemv"] += 2 * n_layers
         else:
             want[int8_proj] += 4 * n_layers
-        if lm_head_w4:
+        if lm_head_w4 and lm_rows <= MLP_FUSED_MAX_ROWS:
             want["w4a8_gemv"] += 1
+            want["quant_rows"] += lm_rows > W4A8_PROLOGUE_MAX_ROWS
         else:
             want["q8_matmul"] += 1
     return want
@@ -1723,6 +1831,183 @@ def _phase_graph(torch, model, cfg, rec, main_counts):
     return arms
 
 
+# The speculative phase: (drafter, k, n) of each generate_spec run, and the
+# chunk (one chunk covers the request's decode tokens).
+SPEC_RUNS = (("ngram", 8, 3), ("longest", 8, 3))
+SPEC_CHUNK = MAX_NEW_TOKENS - 1
+
+
+def phase_speculative(torch, model, cfg, rec, main_counts):
+    """Speculative decoding (after phase 7): request 0 through
+    ``generate_spec`` (k = 8, n = 3, the n-gram and the longest-match
+    drafter) in bf16 on the model as it is (its greedy stream repeats one
+    token: acceptance), then with the final norm redrawn as in phase 7 in
+    bf16 and in every quantized arm (streams that change token: drafts
+    accepted and rejected). See ``_spec_arm`` for what each arm holds."""
+    from paligemma_tpu_torch import quantization
+
+    out = {"undrawn": [_spec_arm(torch, model, cfg, "bf16 seeded norm", None, None, rec, main_counts)]}
+    with _tokens_that_change(torch, model):
+        arms = [_spec_arm(torch, model, cfg, "bf16", None, None, rec, main_counts)]
+        for name, qargs, kv_int8 in QUANT_ARMS:
+            qmodel = quantization.quantize_params(model, llm_only=True, **qargs)
+            arms.append(_spec_arm(torch, qmodel, cfg, name, qargs, torch.int8 if kv_int8 else None, rec,
+                                  main_counts))
+            del qmodel  # with it go its pooled caches and their graphs
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["redrawn"] = arms
+    log(f"[spec] {json.dumps(out)}")
+    return out
+
+
+def _top_two_gap(torch, model, ids, pix, prefix, cache_dtype):
+    """(top-1 minus top-2 logit, the 2% bar) of the plain sequential step
+    that chooses the token after ``prefix`` (the prefill, then one eager
+    ``decode_step`` a token of it)."""
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.models import paligemma
+
+    cache = generation.make_cache(model, 1, ids.shape[1], len(prefix) + 1, cache_dtype)
+    lg, cache = paligemma.prefill(model, ids, pix, cache, full_logits=False)
+    for t in prefix:
+        lg, cache = paligemma.decode_step(model, torch.tensor([[t]], dtype=torch.int32, device=ids.device), cache)
+    last = lg[0, -1].float()
+    top = last.topk(2).values
+    return float(top[0] - top[1]), LOGIT_REL_TOL * float(last.abs().max())
+
+
+def _spec_arm(torch, model, cfg, name, qargs, cache_dtype, rec, main_counts):
+    """One arm of the speculative phase on request 0:
+    1. ``verify_step``'s k logits rows against k sequential ``decode_step``
+       calls on generate's first k tokens, within phase 5's 2% bar;
+    2. each drafter's ``generate_spec`` tokens against ``generate``'s:
+       identical up to the first position where the two paths' argmaxes
+       differ, where the sequential step's top two logits must lie within
+       that bar of each other (the position is reported);
+    3. its launches (and int8 x int8 calls) the code's: the prefill, then
+       per verify iteration one forward of k rows;
+    4. ``tokens_per_verify``, and the host ms a decode token of a
+       ``decode_steps_spec`` chunk against a ``decode_steps`` chunk of the
+       same 31 tokens from the same prefilled cache (best of two);
+    5. sampled (temperature 0.8, top_p 0.9): one seed repeats its stream,
+       and temperature 0 is the greedy stream."""
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.models import gemma, paligemma
+    from paligemma_tpu_torch.ops import kernels, quant
+
+    ids, pix = rec["ids"], rec["pix"]
+    dev, t = ids.device, ids.shape[1]
+    n_dec = MAX_NEW_TOKENS - 1
+    tag = f"[spec {name}]"
+    ref, _ = generation.generate(model, ids, pix, MAX_NEW_TOKENS, -1, cache_dtype=cache_dtype)
+
+    k0 = SPEC_RUNS[0][1]
+    toks = torch.tensor([ref[:k0]], dtype=torch.int32, device=dev)
+
+    def prefilled(extra):
+        cache = generation.make_cache(model, 1, t, extra, cache_dtype)
+        return paligemma.prefill(model, ids, pix, cache, full_logits=False)[1]
+
+    ver, _ = paligemma.verify_step(model, toks, prefilled(k0))
+    c, seq = prefilled(k0), []
+    for i in range(k0):
+        lg, c = paligemma.decode_step(model, toks[:, i:i + 1], c)
+        seq.append(lg[0, 0].float())
+    errs = [float((ver[0, i] - seq[i]).abs().max()) for i in range(k0)]
+    bars = [LOGIT_REL_TOL * float(x.abs().max()) for x in seq]
+    log(f"{tag} verify_step k={k0} logits max|verify - sequential decode_step| per row "
+        f"{[f'{e:.3e}' for e in errs]} (bars from {min(bars):.3e})")
+    check(all(e <= b for e, b in zip(errs, bars)), f"{tag} verify_step's rows are off the sequential steps'")
+
+    record = {"arm": name, "verify_max_logit_err": max(errs), "runs": []}
+    for drafter, k, n in SPEC_RUNS:
+        kw = dict(cache_dtype=cache_dtype, chunk=SPEC_CHUNK, k=k, n=n, drafter=drafter)
+        generation.generate_spec(model, ids, pix, MAX_NEW_TOKENS, -1, **kw)  # the captures
+        kernels.reset_launch_counts()  # this run's path, read right after it
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec = generation.generate_spec(model, ids, pix, MAX_NEW_TOKENS, -1, stats=stats, **kw)
+        request_ms = (time.perf_counter() - t0) * 1e3
+        counts = {**kernels.launch_counts(), "a8_matmul": quant.a8_matmul.calls}
+        main_counts.update(counts)
+        want = _expected_launches(cfg, qargs, t, 0, verify=(stats["verify_steps"], k))
+        check(all(counts.get(x, 0) == want[x] for x in set(counts) | set(want)),
+              f"{tag} {drafter}: launch counts {counts} differ from the code's {dict(want)}")
+        div = next((i for i, (a, b) in enumerate(zip(spec, ref)) if a != b), None)
+        check(len(spec) == len(ref) == MAX_NEW_TOKENS, f"{tag} {drafter}: {len(spec)} tokens")
+        gap = bar = None
+        if div is not None:
+            gap, bar = _top_two_gap(torch, model, ids, pix, ref[:div], cache_dtype)
+            check(gap <= bar, f"{tag} {drafter}: spec and generate differ at {div} where the sequential "
+                              f"step's top two logits are {gap:.4e} apart (bar {bar:.4e})")
+
+        # Host ms a decode token: a decode_steps_spec chunk against a
+        # decode_steps chunk of the same tokens, from one prefilled cache.
+        cache = generation.make_cache(model, 1, t, n_dec + 2 * k, cache_dtype)
+
+        def first_token():
+            c = gemma.reset_cache(cache)
+            logits, c = generation.prefill(model, ids, pix, c)
+            return logits[:, -1].argmax(-1).to(torch.int32)[:, None], c
+
+        def spec_chunk():
+            first, c = first_token()
+            ids_buf = torch.zeros((1, t + n_dec + 2 * k), dtype=torch.int32, device=dev)
+            ids_buf[:, :t], ids_buf[0, t] = ids, first[0, 0]
+            buf_len = torch.tensor(t + 1, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_buf, produced, *_ = generation.decode_steps_spec(model, first, c, ids_buf, buf_len, n_dec,
+                                                                 k=k, n=n, drafter=drafter)
+            out_buf[0, :n_dec].tolist()
+            return (time.perf_counter() - t0) * 1e3 / n_dec, int(produced)
+
+        def plain_chunk():
+            first, c = first_token()
+            generation.prepare_decode(model, c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generation.decode_steps(model, first, c, n_dec)[0].tolist()
+            return (time.perf_counter() - t0) * 1e3 / n_dec
+
+        spec_chunk()  # the capture on this cache
+        spec_ms, plain_ms = min(spec_chunk()[0] for _ in range(2)), min(plain_chunk() for _ in range(2))
+        del cache
+        log(f"{tag} {drafter} k={k} n={n}: {len(spec)} tokens, first difference from generate at "
+            f"{div if div is not None else 'none'}"
+            + (f" (sequential top two {gap:.4e} apart, bar {bar:.4e})" if div is not None else "")
+            + f" | tokens_per_verify {stats['tokens_per_verify']} ({stats['produced']} produced in "
+            f"{stats['verify_steps']} verify steps) | launches {counts} = expected | host ms/token of a "
+            f"{n_dec}-token chunk: decode_steps_spec {spec_ms:.4f}, decode_steps {plain_ms:.4f} "
+            f"(best of 2) | generate_spec request {request_ms:.2f} ms")
+        record["runs"].append({"drafter": drafter, "k": k, "n": n, "first_difference": div,
+                               "tokens_per_verify": stats["tokens_per_verify"],
+                               "verify_steps": stats["verify_steps"], "produced": stats["produced"],
+                               "spec_host_ms_per_token": spec_ms, "decode_steps_host_ms_per_token": plain_ms,
+                               "request_ms": request_ms})
+
+    # Sampled: one seed, one stream; temperature 0 is the greedy stream.
+    drafter, k, n = SPEC_RUNS[0]
+    greedy = generation.generate_spec(model, ids, pix, MAX_NEW_TOKENS, -1, cache_dtype=cache_dtype,
+                                      chunk=SPEC_CHUNK, k=k, n=n, drafter=drafter)
+
+    def sampled(seed, temperature=SAMPLE_TEMPERATURE):
+        return generation.generate_spec(model, ids, pix, MAX_NEW_TOKENS, -1, cache_dtype=cache_dtype,
+                                        chunk=SPEC_CHUNK, k=k, n=n, drafter=drafter, do_sample=True,
+                                        temperature=temperature, top_p=SAMPLE_TOP_P,
+                                        generator=torch.Generator(device=dev).manual_seed(seed))
+
+    a, b, t0_toks = sampled(SEED + 1), sampled(SEED + 1), sampled(SEED + 1, 0.0)
+    log(f"{tag} sampled temperature {SAMPLE_TEMPERATURE} top_p {SAMPLE_TOP_P}: seed {SEED + 1} twice equal: "
+        f"{a == b} | temperature 0 == greedy spec: {t0_toks == greedy} | distinct ids {len(set(a))} of {len(a)}")
+    check(a == b, f"{tag} sampled spec with one seed gave two streams")
+    check(t0_toks == greedy, f"{tag} sampled spec at temperature 0 is not greedy")
+    check(all(0 <= x < cfg.text_config.vocab_size for x in a), f"{tag} sampled token id out of range")
+    return record
+
+
 def _cache_tensors(cache):
     """{field: tensor} of a cache: K/V (and the int8 cache's scales), the
     device length and the valid lengths."""
@@ -2091,25 +2376,27 @@ def phase_ablation(torch, model, proc, main_counts):
 
 
 def phase_cli(torch):
-    """``inference_torch.py --demo`` as a subprocess: exit 0 on the card."""
+    """``inference_torch.py --demo`` as a subprocess, and with
+    ``--speculative``: exit 0 on the card."""
     import tempfile
 
     repo = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="pg_cli_") as tmp:
         img = os.path.join(tmp, "img.png")
         _request_image(0).save(img)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, os.path.join(repo, "inference_torch.py"), "--demo", "--prompt", "describe",
-             "--image_file_path", img, "--max_tokens_to_generate", "12"],
-            capture_output=True, text=True, timeout=300, cwd=repo,
-        )
-    lines = proc.stdout.splitlines()
-    device = next((line for line in lines if line.startswith("Device in use:")), "")
-    log(f"[cli] inference_torch.py --demo: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s | "
-        f"{device!r} | output {lines[-1] if lines else ''!r}")
-    check(proc.returncode == 0, f"[cli] exit {proc.returncode}: {proc.stderr[-2000:]}")
-    check("cuda" in device, "[cli] the CLI did not run on cuda")
+        for extra in ([], ["--speculative"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.join(repo, "inference_torch.py"), "--demo", "--prompt", "describe",
+                 "--image_file_path", img, "--max_tokens_to_generate", "12", *extra],
+                capture_output=True, text=True, timeout=300, cwd=repo,
+            )
+            lines = proc.stdout.splitlines()
+            device = next((line for line in lines if line.startswith("Device in use:")), "")
+            log(f"[cli] inference_torch.py --demo {' '.join(extra)}: exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s | {device!r} | output {lines[-1] if lines else ''!r}")
+            check(proc.returncode == 0, f"[cli] exit {proc.returncode}: {proc.stderr[-2000:]}")
+            check("cuda" in device, "[cli] the CLI did not run on cuda")
 
 
 KERNEL_TABLE = [
@@ -2151,6 +2438,7 @@ def main() -> int:
     log(f"[arms] {json.dumps(arms)}")
     phase_prefill_graph(torch, model, cfg, records[0], main_counts)
     phase_graph(torch, model, cfg, records[0], main_counts)
+    phase_speculative(torch, model, cfg, records[0], main_counts)
     phase_batched(torch, model, proc, tok, cfg, records, main_counts)
     log(f"[ablation] {json.dumps(phase_ablation(torch, model, proc, main_counts))}")
     phase_cli(torch)

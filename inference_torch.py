@@ -7,12 +7,13 @@ counterpart of ``inference.py``.
 The same flags and defaults as ``inference.py`` (model_path, prompt,
 image_file_path, max_tokens_to_generate=100, temperature=0.8, top_p=0.9,
 do_sample=False, only_cpu=False, ``--quant none|int8|w4a8``,
-``--prefill_a8``), plus ``--demo``, which runs the pipeline on a tiny
-randomly initialized model with the byte tokenizer when no checkpoint is at
-hand. It runs on the CUDA card; ``--only_cpu=True`` is the only way onto
-the CPU, and without it the CLI fails when there is no card. Generation goes
-through ``generation.generate_chunked``. ``--speculative`` is not offered:
-speculative decoding is not ported yet.
+``--prefill_a8``, ``--speculative``), plus ``--demo``, which runs the
+pipeline on a tiny randomly initialized model with the byte tokenizer when
+no checkpoint is at hand. It runs on the CUDA card; ``--only_cpu=True`` is
+the only way onto the CPU, and without it the CLI fails when there is no
+card. Generation goes through ``generation.generate_chunked``, or with
+``--speculative`` through ``generation.generate_spec`` (n-gram drafts, k =
+8 tokens a verify step).
 """
 from __future__ import annotations
 
@@ -46,10 +47,13 @@ def test_inference(
     do_sample: bool,
     cache_dtype=None,
     seed: int = 0,
+    speculative: bool = False,
 ):
     """Greedy or top-p generation (reference: inference.py:34-85); returns
     ``prompt + decoded`` as the reference does. Sampling draws from a
-    generator seeded with ``seed`` on the model's device."""
+    generator seeded with ``seed`` on the model's device. ``speculative``:
+    n-gram speculative decoding (greedy: the same tokens; sampled: the
+    same distribution)."""
     import torch
     from PIL import Image
 
@@ -62,7 +66,8 @@ def test_inference(
     inputs = processor(text=[prompt], images=[image])
     ids = torch.from_numpy(inputs["input_ids"]).to(dev)
     pix = torch.from_numpy(inputs["pixel_values"]).to(dev, model.vision.patch_embedding.weight.dtype)
-    tokens = generation.generate_chunked(
+    generate = generation.generate_spec if speculative else generation.generate_chunked
+    tokens = generate(
         model, ids, pix, max_tokens_to_generate, processor.tokenizer.eos_token_id,
         cache_dtype=cache_dtype, do_sample=do_sample, temperature=temperature, top_p=top_p,
         generator=torch.Generator(device=dev).manual_seed(seed),
@@ -139,6 +144,10 @@ def main(argv=None):
     p.add_argument("--prefill_a8", type=str2bool, default=False,
                    help="int8 x int8 products for the long (prefill) projections (requires "
                         "--quant int8 or w4a8; not token-identical to bf16)")
+    p.add_argument("--speculative", action="store_true",
+                   help="n-gram speculative decoding: greedy output is token-identical, sampled "
+                        "output draws the plain sampling distribution; faster when the answer "
+                        "repeats context")
     args = p.parse_args(argv)
 
     import torch
@@ -170,6 +179,7 @@ def main(argv=None):
             args.temperature,
             args.top_p,
             args.do_sample,
+            speculative=args.speculative,
         )
     )
     return 0

@@ -1,6 +1,10 @@
-// Single-query GQA attention against the preallocated KV cache, bf16 in and
-// out, fp32 accumulation; the cache is bf16, or int8 with one fp32 scale per
-// cached row (the int8 KV cache, models/gemma.py::QuantKVCache).
+// GQA attention of T <= 16 queries a batch row against the preallocated KV
+// cache, bf16 in and out, fp32 accumulation; the cache is bf16, or int8 with
+// one fp32 scale per cached row (the int8 KV cache,
+// models/gemma.py::QuantKVCache). T = 1 is a decode step; T > 1 is the
+// speculative verify step, whose query i sees the positions [0, valid[b] + i)
+// (and the window): the reference's per-query threshold mask
+// (paligemma_tpu/models/gemma.py, forward with multi_token_decode).
 //
 // Replaces: paligemma_tpu/ops/pallas_attention.py::decode_attention (kernel
 // body _decode_kernel). Same arithmetic: scores = (q . k) * scale in fp32,
@@ -10,7 +14,15 @@
 // sums, in a fixed order).
 //
 // Shape on the main path (PaliGemma-3B-224, batch 1): q (1,1,8,256), cache
-// (1,S,1,256) with S = prompt + max_new_tokens, 18 calls per decoded token.
+// (1,S,1,256) with S = prompt + max_new_tokens, 18 calls per decoded token;
+// a verify step of k drafts calls it with q (1,k,8,256).
+//
+// The verify shape puts the query index in the grid: one cluster per (batch
+// row, query i, kv head), each running exactly the one-query arithmetic below
+// with valid[b] + i as its visible length. So query row i is bit for bit the
+// T = 1 call at visible length valid[b] + i; K/V are read T times, from L2
+// at the main path's lengths. (Widening the mma's n side to G T query rows
+// would not fit the scores of T = 13 in shared memory.)
 //
 // The int8 cache is read as the reference reads it (gemma.py, the decode
 // branch of _attention): each value is multiplied by its row's scale
@@ -85,16 +97,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileRows = 64;    // cache rows a tile (and a ring stage); the cluster rule: 64 C >= S
 constexpr int kStages = 4;       // the ring of K and V tiles
 constexpr int kMaxCluster = 16;  // non-portable cluster size on the H100
+constexpr int kMaxQueries = 16;  // queries a batch row (the verify step's drafts)
 
 struct DecodeParams {
   const bf16* q;
   const void* k;        // bf16, or int8 with k_scale / v_scale
   const void* v;
-  bf16* o;
+  bf16* o;           // (B, T, H, D)
   const int* valid;  // (B,) or null (all S visible)
-  int b, s, h, hkv, d;
+  int b, t, s, h, hkv, d;
   int tiles;         // tiles of the block that holds the most (host)
-  long long q_sb, q_sh;
+  long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   const float* k_scale;  // (B, S, Hkv) per-row scales of the int8 cache, or null
@@ -167,11 +180,13 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   unsigned char* ring = sm + L.ring;
   const unsigned ring_s = static_cast<unsigned>(__cvta_generic_to_shared(ring));
   const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
-  const int bi = blockIdx.y / p.hkv, hk = blockIdx.y % p.hkv;
+  // blockIdx.y enumerates (batch row, query, kv head), the kv head fastest.
+  const int bi = blockIdx.y / (p.t * p.hkv), qi = blockIdx.y / p.hkv % p.t, hk = blockIdx.y % p.hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, t4 = lane & 3;  // the mma fragments' row and column group
 
-  const int valid = p.valid ? p.valid[bi] : p.s;
+  // Query qi sees one position more than query qi - 1 (past S: nothing more).
+  const int valid = (p.valid ? p.valid[bi] : p.s) + qi;
   // The window's end: a host int, or read once from the device (batched
   // serving's decode step moves it every step inside one CUDA graph).
   const int win1 = p.win1_dev ? *p.win1_dev : p.win1;
@@ -277,7 +292,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
   for (int gi = warp; gi < L.gp; gi += kWarps) {  // 16-byte pieces (qs is a multiple of 8)
     for (int e = 8 * lane; e < L.qs; e += 256) {
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (gi < g && e < d) v = *reinterpret_cast<const uint4*>(p.q + bi * p.q_sb + (hk * g + gi) * p.q_sh + e);
+      if (gi < g && e < d)
+        v = *reinterpret_cast<const uint4*>(p.q + bi * p.q_sb + qi * p.q_st + (hk * g + gi) * p.q_sh + e);
       *reinterpret_cast<uint4*>(q_s + gi * L.qs + e) = v;
     }
   }
@@ -452,7 +468,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeParams p) {
 
   // Block r stores the r-th share of the outputs, summed in rank order.
   const int total = g * d, share = (total + n_ranks - 1) / n_ranks;
-  bf16* ob = p.o + ((long long)bi * p.h + hk * g) * d;
+  bf16* ob = p.o + (((long long)bi * p.t + qi) * p.h + hk * g) * d;
   for (int i = rank * share + tid; i < min(total, (rank + 1) * share); i += kThreads) {
     float part[kMaxCluster];
 #pragma unroll
@@ -490,7 +506,7 @@ cudaError_t launch(DecodeParams p, cudaStream_t st) {
     smem_limit = (int)smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c, p.b * p.hkv);
+  cfg.gridDim = dim3(c, p.b * p.t * p.hkv);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
@@ -507,24 +523,25 @@ cudaError_t launch(DecodeParams p, cudaStream_t st) {
 
 }  // namespace
 
-// q (B,1,H,D); k/v cache (B,S,Hkv,D) with unit stride on D and the other
-// strides (in elements) given: bf16, or int8 when k_scale and v_scale (the
-// (B,S,Hkv) fp32 row scales, strides given) are not null. o (B,1,H,D)
-// contiguous bf16. The window is [win0, win1), or [win0, *win1_dev) when
-// win1_dev (a device int32) is not null. One launch; returns its
-// cudaError_t (0 on success).
+// q (B,T,H,D) with 1 <= T <= 16; k/v cache (B,S,Hkv,D) with unit stride on
+// D and the other strides (in elements) given: bf16, or int8 when k_scale
+// and v_scale (the (B,S,Hkv) fp32 row scales, strides given) are not null.
+// o (B,T,H,D) contiguous bf16. Query i of row b sees [0, valid[b] + i) and
+// the window [win0, win1), or [win0, *win1_dev) when win1_dev (a device
+// int32) is not null. One launch; returns its cudaError_t (0 on success).
 extern "C" int pg_decode_attention(const void* q, const void* k, const void* v, void* o,
-                                   const int* valid, int b, int s, int h, int hkv, int d,
-                                   long long q_sb, long long q_sh, long long k_sb, long long k_ss,
+                                   const int* valid, int b, int t, int s, int h, int hkv, int d,
+                                   long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_ss,
                                    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                    const void* k_scale, const void* v_scale, long long ks_sb,
                                    long long ks_ss, long long ks_sh, long long vs_sb,
                                    long long vs_ss, long long vs_sh, int win0,
                                    int win1, const int* win1_dev, float scale, void* stream) {
-  if ((k_scale == nullptr) != (v_scale == nullptr) || b < 1 || s < 1 || hkv < 1 || h % hkv || h / hkv > 8)
+  if ((k_scale == nullptr) != (v_scale == nullptr) || b < 1 || t < 1 || t > kMaxQueries || s < 1 || hkv < 1 ||
+      h % hkv || h / hkv > 8 || (long long)b * t * hkv > 65535)
     return cudaErrorInvalidValue;
-  DecodeParams p{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(o), valid, b, s, h, hkv, d, 0,
-                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+  DecodeParams p{static_cast<const bf16*>(q), k, v, static_cast<bf16*>(o), valid, b, t, s, h, hkv, d, 0,
+                 q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                  static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                  ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh, win0, win1, win1_dev, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

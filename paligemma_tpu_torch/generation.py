@@ -1,6 +1,8 @@
 """Autoregressive generation (port of ``paligemma_tpu/generation.py``:
 ``make_cache``, prefill, ``decode_steps``, ``generate``,
-``generate_chunked[_stream]`` and ``generate_scan``), greedy or sampled.
+``generate_chunked[_stream]``, ``generate_scan``, and speculative decoding:
+the n-gram and longest-match drafters, ``decode_steps_spec`` and
+``generate_spec``), greedy or sampled.
 
 Two functions run on the device, each in place on static buffers and with
 the cache length on the device, so neither reads anything back to the
@@ -51,6 +53,16 @@ choice of the first token stays outside the prefill, as the reference's
   replay and one host read (the EOS check) per token. ``generate_scan`` is
   one prefill replay, the first token's choice and the decode replays,
   with no host sync until the caller reads the result.
+- Speculative decoding (batch 1): one verify iteration (draft from the
+  token buffer, ``verify_step`` over ``[token, drafts]``, the model's
+  choice at each of the k positions, the longest agreeing prefix accepted)
+  is a step on device buffers, captured once as a CUDA graph per (cache
+  buffers, model, ``fns``, k, n, drafter, ``do_sample``).
+  ``decode_steps_spec`` replays it in groups: ``ceil((n_steps - produced)
+  / k)`` replays, then one read of ``produced``, until ``n_steps`` tokens
+  are produced. No iteration inside a group can reach ``n_steps`` before
+  the last one (an iteration accepts at most k tokens), so the port runs
+  exactly the iterations of the reference's ``while_loop``.
 """
 from __future__ import annotations
 
@@ -61,6 +73,7 @@ from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from paligemma_tpu_torch import quantization
 from paligemma_tpu_torch.models import gemma, paligemma
 from paligemma_tpu_torch.models.gemma import KVCache
 from paligemma_tpu_torch.models.paligemma import PaliGemma
@@ -614,3 +627,366 @@ def generate_scan(
     is_eos = (tokens == eos_token_id).to(torch.int32)
     done_before = (is_eos.cumsum(dim=1) - is_eos) > 0  # a token is valid unless EOS came before it
     return GenerationResult(tokens.to(torch.int32), (~done_before).sum(dim=1).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the drafters, the verify iteration, generate_spec
+# ---------------------------------------------------------------------------
+#
+# The drafters are device tensor ops only (gathers, cumprod, where, amax,
+# argmax): nothing reads a value back, so they sit inside the captured
+# verify iteration. Indices are gathered, never sliced: a slice whose
+# window crosses the buffer end would have its start clamped and shift
+# every proposed token.
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int64, device=like.device)
+
+
+def _ngram_propose_row(ids_row: torch.Tensor, buf_len: torch.Tensor, token: torch.Tensor,
+                       k: int, n: int) -> torch.Tensor:
+    """Prompt-lookup draft for one row: (k-1,) tokens, those that followed
+    the most recent earlier occurrence of the last (n-1)-gram of
+    ``ids_row[:buf_len]``; the last token repeated where there is none.
+    Continuation positions at or past ``buf_len`` (unwritten, or stale) fall
+    back to the repeated token too."""
+    L = ids_row.shape[0]
+    bl = buf_len.long()
+    start = (bl - (n - 1)).clamp(0, L - (n - 1))  # the reference's dynamic_slice start
+    gram = ids_row[start + _arange(n - 1, ids_row)]
+    idx = _arange(L, ids_row)[:, None] + _arange(n - 1, ids_row)[None, :]
+    wins = ids_row[idx.clamp(0, L - 1)]
+    starts = _arange(L, ids_row)
+    valid = (wins == gram[None, :]).all(dim=-1) & (starts + n - 1 < bl)
+    pos = torch.where(valid, starts, -1).amax()
+    cont_pos = pos.clamp_min(0) + (n - 1) + _arange(k - 1, ids_row)
+    cont = ids_row[cont_pos.clamp_max(L - 1)]
+    ok = (pos >= 0) & (cont_pos < bl)
+    return torch.where(ok, cont, token)
+
+
+def _ngram_propose(ids_buf: torch.Tensor, buf_len: torch.Tensor, token: torch.Tensor,
+                   k: int, n: int) -> torch.Tensor:
+    """(1, k-1) draft for the batch-1 driver (see ``_ngram_propose_row``)."""
+    return _ngram_propose_row(ids_buf[0], buf_len, token[0, 0], k, n)[None, :]
+
+
+# Longest-match drafter: context cap and minimum context to draft from.
+LONGEST_NMAX = 16
+LONGEST_MIN_MATCH = 1
+
+
+def _longest_match_propose_row(ids_row: torch.Tensor, buf_len: torch.Tensor, token: torch.Tensor,
+                               k: int, n_max: int = LONGEST_NMAX,
+                               min_match: int = LONGEST_MIN_MATCH) -> torch.Tensor:
+    """Variable-context prompt-lookup draft for one row: (k-1,) tokens from
+    the continuation start whose preceding context shares the longest
+    suffix with the sequence's end (at most ``n_max``; ties to the most
+    recent). With ``n_max = min_match = n-1`` it is the n-gram drafter.
+    The n-gram drafter's fallback and validity rules."""
+    L = ids_row.shape[0]
+    bl = buf_len.long()
+    # wins[s]: the n_max tokens ending just before continuation start s.
+    idx = _arange(L, ids_row)[:, None] + _arange(n_max, ids_row)[None, :] - n_max
+    wins = ids_row[idx.clamp(0, L - 1)]
+    sidx = bl - n_max + _arange(n_max, ids_row)
+    suf = ids_row[sidx.clamp(0, L - 1)]
+    eq = (wins == suf[None, :]) & (idx >= 0) & (sidx >= 0)[None, :]
+    # The trailing run of matches, per candidate start.
+    run = torch.cumprod(eq.flip(1).to(torch.int64), dim=1).sum(dim=1)
+    starts = _arange(L, ids_row)
+    cand = (starts < bl) & (run >= min_match)
+    # Lexicographic (run, start): longest context first, then most recent.
+    score = torch.where(cand, run * L + starts, -1)
+    best = score.argmax()
+    cont_pos = best + _arange(k - 1, ids_row)
+    cont = ids_row[cont_pos.clamp(0, L - 1)]
+    ok = (score.amax() >= 0) & (cont_pos < bl)
+    return torch.where(ok, cont, token)
+
+
+def propose_row(drafter: str, ids_row: torch.Tensor, buf_len: torch.Tensor, token: torch.Tensor,
+                k: int, n: int) -> torch.Tensor:
+    """Draft (k-1,) continuation tokens for one row with the chosen drafter
+    (``"ngram"`` or ``"longest"``)."""
+    if drafter == "longest":
+        return _longest_match_propose_row(ids_row, buf_len, token, k)
+    if drafter != "ngram":
+        raise ValueError(f"unknown drafter {drafter!r}")
+    return _ngram_propose_row(ids_row, buf_len, token, k, n)
+
+
+@dataclasses.dataclass(eq=False)
+class _SpecState:
+    """The verify iteration's inputs and outputs on the device (a graph's
+    static buffers). ``token`` (1, 1) is the last emitted token, already in
+    ``ids`` at ``buf_len - 1``; each iteration writes its k candidates into
+    ``out`` at ``produced`` and into ``ids`` at ``buf_len`` and advances
+    both by the accepted count."""
+
+    token: torch.Tensor  # (1, 1) int32
+    ids: torch.Tensor  # (1, max_len + k) int32: prompt + emitted tokens
+    buf_len: torch.Tensor  # () int32
+    out: torch.Tensor  # (1, max_len + k) int32
+    produced: torch.Tensor  # () int32
+    iters: torch.Tensor  # () int32
+    temperature: torch.Tensor  # (1, 1) fp32
+    top_p: torch.Tensor  # (1, 1) fp32
+    generator: Optional[torch.Generator] = None
+
+
+def _verify_iteration(model: PaliGemma, cache: KVCache, st: _SpecState, fns: KernelFns, k: int,
+                      n: int, drafter: str, do_sample: bool) -> None:
+    """One speculative iteration, in place (the body of the reference's
+    ``decode_steps_spec`` loop): draft, verify ``[token, drafts]``, choose
+    at every position (greedy, or one batched sampled choice over the k
+    rows), accept the longest prefix of drafts that the choices repeat plus
+    one token, and roll the cache length back to it."""
+    drafts = propose_row(drafter, st.ids[0], st.buf_len, st.token[0, 0], k, n)
+    logits, _ = paligemma.verify_step(model, torch.cat([st.token, drafts[None, :]], dim=1), cache, fns)
+    if do_sample:
+        a = select_token_traced(logits[0], st.generator, True, st.temperature, st.top_p)
+    else:
+        a = logits[0].float().argmax(dim=-1).to(torch.int32)
+    matched = torch.cumprod((drafts == a[:-1]).to(torch.int32), dim=0).sum()
+    accept = (matched + 1).to(torch.int32)  # tokens emitted this iteration
+    cache.length.sub_(k - accept)  # the verify advanced it by k
+    # Every candidate is written; the columns past ``accept`` are
+    # overwritten by the next iteration and never read before. The indices
+    # are clamped to the buffers (the driver's bounds checks catch overruns).
+    width = st.out.shape[1]
+    st.out.index_copy_(1, (st.produced + _arange(k, a)).clamp_max(width - 1), a[None, :])
+    st.ids.index_copy_(1, (st.buf_len + _arange(k, a)).clamp_max(width - 1), a[None, :])
+    st.token.copy_(a.gather(0, matched.view(1)).view(1, 1))
+    st.produced.add_(accept)
+    st.iters.add_(1)
+    st.buf_len.add_(accept)
+
+
+class _SpecRunner(_Captured):
+    """``_verify_iteration`` on one cache's buffers: eager on a CPU cache;
+    on a CUDA cache, captured as a CUDA graph that a run replays once an
+    iteration (the warm-up iteration undone)."""
+
+    def __init__(self, model, cache, fns, k, n, drafter, do_sample):
+        super().__init__(model, cache, fns)
+        dev, width = cache.k.device, cache.max_len + k
+
+        def zeros(shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.state = _SpecState(token=zeros((1, 1)), ids=zeros((1, width)), buf_len=zeros(()),
+                                out=zeros((1, width)), produced=zeros(()), iters=zeros(()),
+                                temperature=zeros((1, 1), torch.float32),
+                                top_p=zeros((1, 1), torch.float32))
+        self.k, self.n, self.drafter, self.do_sample = k, n, drafter, do_sample
+        if dev.type == "cuda":
+            if cache.host_length + k > cache.max_len:  # the warm-up writes k rows
+                raise ValueError(f"cache full: {cache.host_length} + {k} > {cache.max_len}")
+            if do_sample:  # a generator of the graph's own, registered with it
+                self.state.generator = torch.Generator(device=dev)
+            length, valid, host_length = cache.length.clone(), cache.valid.clone(), cache.host_length
+
+            def restore():
+                cache.length.copy_(length)
+                cache.valid.copy_(valid)
+                cache.host_length = host_length
+
+            self._capture(dev, lambda: self._step(model, cache), restore, self.state.generator)
+
+    def _step(self, model, cache) -> None:
+        _verify_iteration(model, cache, self.state, self.fns, self.k, self.n, self.drafter,
+                          self.do_sample)
+
+    def start(self, token: torch.Tensor, ids_buf: torch.Tensor, buf_len: Union[int, torch.Tensor],
+              temperature: Scalar, top_p: Scalar) -> None:
+        """Set a run's inputs: the (1, 1) token, the (1, L) id buffer and its
+        valid length, and the sampling values; ``produced`` and ``iters``
+        start at 0."""
+        st = self.state
+        width = min(ids_buf.shape[1], st.ids.shape[1])
+        st.token.copy_(token)
+        st.ids.zero_()
+        st.ids[:, :width].copy_(ids_buf[:, :width])
+        if isinstance(buf_len, torch.Tensor):
+            st.buf_len.copy_(buf_len)
+        else:
+            st.buf_len.fill_(buf_len)
+        st.produced.zero_()
+        st.iters.zero_()
+        if self.do_sample:
+            for buf, x in ((st.temperature, temperature), (st.top_p, top_p)):
+                if isinstance(x, torch.Tensor):
+                    buf.copy_(x)
+                else:
+                    buf.fill_(x)
+
+    def run(self, model: PaliGemma, cache: KVCache, n_steps: int,
+            generator: Optional[torch.Generator] = None) -> None:
+        """Iterations until at least ``n_steps`` tokens are produced, in
+        groups of ``ceil((n_steps - produced) / k)`` with one read of
+        ``produced`` after each; ``cache.host_length`` is exact after it."""
+        st, k, h0 = self.state, self.k, cache.host_length
+        caller = generator
+        if self.graph is not None and self.do_sample:
+            if caller is None:
+                caller = torch.cuda.default_generators[cache.k.device.index or 0]
+            st.generator.set_state(caller.get_state())
+        elif self.graph is None:
+            st.generator = generator
+        produced = 0
+        while produced < n_steps:
+            r = -(-(n_steps - produced) // k)
+            if h0 + produced + r * k > cache.max_len:  # an iteration writes k rows
+                raise ValueError(f"cache full: {h0 + produced} + {r} x {k} > {cache.max_len}")
+            for _ in range(r):
+                if self.graph is None:
+                    self._step(model, cache)
+                else:
+                    self._replay()
+            produced = int(st.produced)  # the group's one host read
+            cache.host_length = h0 + produced
+        if self.graph is not None and self.do_sample:
+            caller.set_state(st.generator.get_state())
+
+
+def _spec_runner(model: PaliGemma, cache: KVCache, fns: KernelFns, k: int, n: int, drafter: str,
+                 do_sample: bool) -> _SpecRunner:
+    """The cache's verify-iteration runner for these settings, captured now
+    if it has none that reads this model and these buffers."""
+    key = ("spec", id(model), fns, k, n, drafter, do_sample)
+    runner = cache.graphs.get(key)
+    if runner is None or not runner.serves(model, cache):
+        runner = cache.graphs[key] = _SpecRunner(model, cache, fns, k, n, drafter, do_sample)
+    return runner
+
+
+def _uses_prefill_a8(model: PaliGemma) -> bool:
+    return any(getattr(m, "prefill_a8", False) for m in model.llm.modules())
+
+
+@torch.no_grad()
+def decode_steps_spec(
+    model: PaliGemma,
+    token: torch.Tensor,
+    cache: KVCache,
+    ids_buf: torch.Tensor,
+    buf_len: Union[int, torch.Tensor],
+    n_steps: int,
+    fns: KernelFns = KERNELS,
+    *,
+    k: int = 8,
+    n: int = 3,
+    do_sample: bool = False,
+    temperature: Scalar = 0.0,
+    top_p: Scalar = 0.9,
+    generator: Optional[torch.Generator] = None,
+    drafter: str = "ngram",
+):
+    """Speculative decode of at least ``n_steps`` tokens (batch 1): drafts
+    from ``drafter`` over ``ids_buf[:, :buf_len]`` and k-token verify steps.
+    Greedy, the output is the plain greedy stream; sampled (``do_sample``
+    and ``temperature`` > 0), each position draws from its own top-p
+    distribution, which for these delta drafts is exact speculative
+    sampling (the stream differs from plain sampling's only in how the
+    generator's draws are used). On a CUDA cache each iteration is a replay
+    of its captured graph.
+
+    ``token`` (1, 1) is the last emitted token, already in ``ids_buf`` at
+    ``buf_len - 1``; the cache holds the K/V up to the token before it.
+    Returns (out_buf (1, n_steps + k), produced, iters, token, cache,
+    ids_buf, buf_len), the counts 0-d int32 tensors; the first ``produced``
+    columns of ``out_buf`` are valid. The cache and ``ids_buf`` need k
+    positions of slack past the last token the caller will consume.
+    """
+    if _uses_prefill_a8(model) and k + 1 >= quantization.A8_MIN_SEQ:
+        # A verify this deep would route its projections through the int8 x
+        # int8 product while plain decode steps stay weight-only: the
+        # stream would no longer be the plain one.
+        raise ValueError(
+            f"speculative verify depth k+1={k + 1} >= quantization.A8_MIN_SEQ="
+            f"{quantization.A8_MIN_SEQ} with prefill_a8 on; lower k or disable prefill_a8")
+    if token.shape != (1, 1):
+        raise ValueError(f"decode_steps_spec is batch-1 (token {tuple(token.shape)})")
+    runner = _spec_runner(model, cache, fns, k, n, drafter, do_sample)
+    runner.start(token, ids_buf, buf_len, temperature, top_p)
+    runner.run(model, cache, n_steps, generator)
+    st = runner.state
+    ids_out = ids_buf.clone()
+    width = min(ids_buf.shape[1], st.ids.shape[1])
+    ids_out[:, :width].copy_(st.ids[:, :width])
+    return (st.out[:, : n_steps + k].clone(), st.produced.clone(), st.iters.clone(), st.token.clone(),
+            cache, ids_out, st.buf_len.clone())
+
+
+@torch.no_grad()
+def generate_spec(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    max_new_tokens: int,
+    eos_token_id: int,
+    fns: KernelFns = KERNELS,
+    cache_dtype: Optional[torch.dtype] = None,
+    *,
+    chunk: int = 64,
+    k: int = 8,
+    n: int = 3,
+    do_sample: bool = False,
+    temperature: float = 0.0,
+    top_p: float = 0.9,
+    generator: Optional[torch.Generator] = None,
+    stats: Optional[dict] = None,
+    drafter: str = "ngram",
+) -> List[int]:
+    """Batch-1 generation by speculative decoding (reference:
+    ``generation.generate_spec``). Greedy output is ``generate_chunked``'s
+    tokens; sampled output (``do_sample`` and ``temperature`` > 0) draws
+    the plain sampling distribution. One ``decode_steps_spec`` chunk of at
+    least ``chunk`` tokens and one host read of its result at a time; the
+    stream is trimmed at ``max_new_tokens``, then at EOS.
+
+    ``stats`` (optional dict) receives {"produced", "verify_steps",
+    "tokens_per_verify"}.
+    """
+    b, t = input_ids.shape
+    if b != 1:
+        raise ValueError(f"generate_spec is batch-1 (got batch {b})")
+    n_chunks = -(-max(max_new_tokens - 1, 1) // chunk)
+    # A chunk produces chunk to chunk + k - 1 tokens, and the last verify
+    # writes k positions past the accepted length: room for the worst case.
+    alloc = n_chunks * (chunk + k) + k
+    cache = _pooled_cache(model, b, t, alloc, cache_dtype)
+    tok, cache = _first_token(model, input_ids, pixel_values, cache, fns, generator, do_sample,
+                              temperature, top_p)
+    out = [int(tok[0])]
+    if out[-1] == eos_token_id or max_new_tokens == 1:
+        return out[:max_new_tokens]
+    L = t + alloc
+    ids_buf = torch.zeros((1, L), dtype=torch.int32, device=input_ids.device)
+    ids_buf[:, :t] = input_ids
+    ids_buf[0, t] = tok[0]
+    buf_len = torch.tensor(t + 1, dtype=torch.int32, device=input_ids.device)
+    token = tok[:, None].to(torch.int32)
+    produced_total = verify_total = 0
+    while len(out) < max_new_tokens:
+        out_buf, produced, iters, token, cache, ids_buf, buf_len = decode_steps_spec(
+            model, token, cache, ids_buf, buf_len, chunk, fns, k=k, n=n, do_sample=do_sample,
+            temperature=temperature, top_p=top_p, generator=generator, drafter=drafter)
+        packed = torch.cat([produced[None], iters[None], buf_len[None], out_buf[0]]).tolist()  # one read
+        n_prod, n_iter, blen = packed[:3]
+        if n_prod > chunk + k - 1 or blen + k > L:
+            raise AssertionError(f"speculative buffer headroom exhausted (produced {n_prod}, "
+                                 f"buf_len {blen}, L {L})")
+        produced_total += n_prod
+        verify_total += n_iter
+        new = packed[3 : 3 + n_prod][: max_new_tokens - len(out)]
+        if eos_token_id in new:
+            out.extend(new[: new.index(eos_token_id) + 1])
+            break
+        out.extend(new)
+    if stats is not None:
+        stats.update(produced=produced_total, verify_steps=verify_total,
+                     tokens_per_verify=round(produced_total / max(verify_total, 1), 3))
+    return out

@@ -20,6 +20,13 @@ final RMSNorm, fp32 logits through the tied embedding.
   ``decode_attention``; unwritten slots are masked by the per-row valid
   length, a preallocated (B,) int32 device tensor set from the device
   length, or by the caller's ``LengthMask`` (batched serving).
+- The speculative verify step (``multi_token_decode``) is T > 1 tokens
+  over a warm cache: their K/V are written at ``length + arange(T)`` and
+  the T queries go to ``decode_attention`` with ``valid = length + 1``,
+  so query i sees ``[0, length + i]`` (the reference's per-query
+  threshold). The length advances by T; the caller rolls it back to the
+  accepted count, and ``host_length`` is then an upper bound until the
+  caller sets it.
 - Without a cache, ``forward`` is the full bidirectional pass of the
   no-cache ablation arm, under an optional per-row ``LengthMask``.
 - The int8 cache (``QuantKVCache``, ``init_cache(dtype=torch.int8)``) keeps
@@ -151,7 +158,7 @@ class GemmaLayer(nn.Module):
         self.down = nn.Linear(i, d, bias=False, dtype=dtype)
 
     def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
-                  mask: Optional[LengthMask] = None):
+                  mask: Optional[LengthMask] = None, multi_decode: bool = False):
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -172,7 +179,7 @@ class GemmaLayer(nn.Module):
                 row_scales = {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]}
             cache.k[li].index_copy_(1, pos, k_st.to(cache.k.dtype))
             cache.v[li].index_copy_(1, pos, v_st.to(cache.v.dtype))
-            if t == 1:
+            if t == 1 or multi_decode:  # over the cache (a verify step: T queries)
                 window = {"valid_len": cache.valid, **window}
                 out = fns.decode(q, cache.k[li], cache.v[li], scale=scale, **window, **row_scales)
                 return proj(out.reshape(b, t, h * hd), self.o, fns)
@@ -191,8 +198,8 @@ class GemmaLayer(nn.Module):
         return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
 
     def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
-                mask: Optional[LengthMask] = None):
-        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask)
+                mask: Optional[LengthMask] = None, multi_decode: bool = False):
+        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask, multi_decode)
         return h + self.mlp(self.post_ln(h), fns)
 
 
@@ -222,12 +229,15 @@ def forward(
     cache: Optional[KVCache] = None,
     fns: KernelFns = KERNELS,
     mask: Optional[LengthMask] = None,
+    multi_token_decode: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
 
     With a cache, K/V are written at the device ``cache.length``; T == 1
-    decodes over the cache, T > 1 is a prefill into an empty cache. Nothing
+    decodes over the cache, T > 1 is a prefill into an empty cache, or with
+    ``multi_token_decode`` a verify step over the warm cache: query i sees
+    the written positions up to its own, ``[0, length + i]``. Nothing
     is read back from the device: the checks use ``cache.host_length``.
     Without a cache, T positions attend to each other bidirectionally (the
     reference's no-cache pass).
@@ -248,15 +258,18 @@ def forward(
         positions, cfg.head_dim, cfg.rope_theta, cfg.max_position_embeddings, dtype
     )
     pos = None
+    if multi_token_decode and (cache is None or mask is not None):
+        raise ValueError("multi_token_decode needs a cache and no mask")
     if cache is not None:
-        if t > 1 and cache.host_length:
+        if t > 1 and not multi_token_decode and cache.host_length:
             raise ValueError("prefill (T > 1) needs an empty cache")
         if cache.host_length + t > cache.max_len:
             raise ValueError(f"cache full: {cache.host_length} + {t} > {cache.max_len}")
         pos = cache.length + torch.arange(t, dtype=torch.int64, device=cache.length.device)
-        cache.valid.copy_((cache.length + t).expand(b))
+        # A verify step's query i sees [0, length + 1 + i) (decode_attention).
+        cache.valid.copy_((cache.length + (1 if multi_token_decode else t)).expand(b))
     for li, layer in enumerate(model.layers):
-        h = layer(h, cos, sin, cache, pos, li, fns, mask)
+        h = layer(h, cos, sin, cache, pos, li, fns, mask, multi_token_decode)
     if cache is not None:
         cache.length.add_(t)
         cache.host_length += t

@@ -1,5 +1,5 @@
 """PaliGemma: SigLIP tower + projector + Gemma decoder (port of
-``paligemma_tpu/models/paligemma.py``, the prefill/decode path).
+``paligemma_tpu/models/paligemma.py``, the prefill/decode/verify path).
 
 - The projector is one biased linear, vision_hidden -> projection_dim; image
   features are scaled by 1/sqrt(hidden) to cancel the decoder's sqrt(hidden)
@@ -9,7 +9,8 @@
   lie outside the embedding table, and ``F.embedding`` raises where
   ``jnp.take`` clamps).
 - Prefill positions are 0..T-1; a decode step sits at position = cache
-  length, read on the device (nothing goes back to the host).
+  length, read on the device (nothing goes back to the host), and a
+  speculative verify step (``verify_step``) at length .. length + k - 1.
 - ``forward_nocache`` is the KV-cache-off ablation arm: the full
   bidirectional pass over a (padded) buffer, positions 0..T-1.
 
@@ -124,6 +125,25 @@ def decode_step(
     positions = cache.length.view(1, 1).expand(token.shape[0], 1)
     embeds = gemma.embed_tokens(model.llm, token)
     hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns)
+    return gemma.logits(model.llm, hidden, fns), cache
+
+
+def verify_step(
+    model: PaliGemma, tokens: torch.Tensor, cache: KVCache, fns: KernelFns = KERNELS
+) -> Tuple[torch.Tensor, KVCache]:
+    """Speculative verify step: (B, k) tokens ``[last accepted, d1 ..
+    d_{k-1}]`` at positions ``length .. length + k - 1`` in one forward ->
+    (B, k, V) fp32 logits. Row i's logits predict the token after position
+    ``length + i`` (query i sees the cache up to its own position), so its
+    argmax is what the i-th of k sequential ``decode_step`` calls would
+    choose. The cache holds the K/V of all k positions and ``length`` has
+    advanced by k; the caller rolls ``length`` back to the accepted count
+    (the rows past it are invisible to every later step and overwritten
+    when those positions are reached)."""
+    b, k = tokens.shape
+    positions = (cache.length + torch.arange(k, dtype=torch.int32, device=tokens.device)).expand(b, k)
+    embeds = gemma.embed_tokens(model.llm, tokens)
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns, multi_token_decode=True)
     return gemma.logits(model.llm, hidden, fns), cache
 
 

@@ -33,7 +33,7 @@ _ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctyp
 # so that ctypes never truncates them to 32 bits.
 _SIGNATURES = {
     "pg_flash_attention": [_ptr] * 5 + [_int] * 6 + [_ll] * 9 + [_int, _int, _float, _ptr],
-    "pg_decode_attention": [_ptr] * 5 + [_int] * 5 + [_ll] * 8 + [_ptr] * 2 + [_ll] * 6
+    "pg_decode_attention": [_ptr] * 5 + [_int] * 6 + [_ll] * 9 + [_ptr] * 2 + [_ll] * 6
     + [_int, _int, _ptr, _float, _ptr],
     "pg_q8_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int] + [_ptr] * 3,
     "pg_q4_matmul": [_ptr] * 4 + [_int] * 3 + [_ll, _int] + [_ptr] * 3,

@@ -17,9 +17,11 @@ times ``scale``, invisible positions set to ``NEG_INF``, and
 - flash: unnormalized ``P`` (masked entries zeroed) rounded to the value
   dtype, fp32 ``P @ V``, then divided by the fp32 row sum;
 - decode: ``P`` normalized first, then rounded to the value dtype, then
-  fp32 ``P @ V``. An int8 cache (with its per-row ``k_scale`` /
-  ``v_scale``) is first dequantized as the reference reads it: values and
-  scales each cast to the query dtype, their product rounded to it.
+  fp32 ``P @ V``; query ``i`` of a verify call (T > 1) sees one position
+  more than query ``i - 1`` (``decode_attention``). An int8 cache (with
+  its per-row ``k_scale`` / ``v_scale``) is first dequantized as the
+  reference reads it: values and scales each cast to the query dtype,
+  their product rounded to it.
 
 Visibility follows ``ops.attention.LengthMask``: batch row ``b`` sees kv
 positions ``[0, valid_len[b]) ∪ [gen_start, gen_end)``. The plain versions
@@ -92,15 +94,22 @@ def _valid(valid_len: ValidLen, b: int, s_len: int, device) -> torch.Tensor:
 
 def _masked_scores(
     q: torch.Tensor, k: torch.Tensor, valid_len: ValidLen, scale: Optional[float],
-    gen_start: Window, gen_end: Window,
+    gen_start: Window, gen_end: Window, per_query: bool = False,
 ) -> torch.Tensor:
     """fp32 grouped scores (B, Hkv, G, T, S) times ``scale``; the additive
-    ``LengthMask`` puts every invisible position at exactly ``NEG_INF``."""
+    ``LengthMask`` puts every invisible position at exactly ``NEG_INF``.
+    ``per_query``: query ``i`` sees ``[0, valid[b] + i)`` and the window (the
+    verify step's threshold), else every query sees ``[0, valid[b])`` and it."""
     b, t, h, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     scale = d**-0.5 if scale is None else scale
     valid = _valid(valid_len, b, s_len, q.device)
-    mask = LengthMask(valid, _plain_bound(gen_start), _plain_bound(gen_end)).materialize(s_len)
+    if per_query:
+        rows = (valid[:, None] + torch.arange(t, dtype=torch.int32, device=q.device)).reshape(-1)
+        mask = LengthMask(rows, _plain_bound(gen_start), _plain_bound(gen_end)).materialize(s_len)
+        mask = mask.reshape(b, t, 1, 1, s_len).permute(0, 2, 3, 1, 4)  # (B, 1, 1, T, S)
+    else:
+        mask = LengthMask(valid, _plain_bound(gen_start), _plain_bound(gen_end)).materialize(s_len)
     qg = q.reshape(b, t, hkv, h // hkv, d)
     return torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale + mask
 
@@ -192,8 +201,12 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Decode attention (one query against the KV cache)
+# Decode attention (one query, or a verify step's T, against the KV cache)
 # ---------------------------------------------------------------------------
+
+# The most queries a batch row that ``decode_attention`` takes on CUDA (the
+# drafts of a verify step).
+MAX_DECODE_QUERIES = 16
 
 
 def dequantize_cache(c: torch.Tensor, c_scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -213,11 +226,11 @@ def decode_attention_plain(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of ``decode_attention`` (any device)."""
+    """Plain version of ``decode_attention`` (any device, any T)."""
     if k_scale is not None:
         k_cache = dequantize_cache(k_cache, k_scale, q.dtype)
         v_cache = dequantize_cache(v_cache, v_scale, q.dtype)
-    s = _masked_scores(q, k_cache, valid_len, scale, gen_start, gen_end)
+    s = _masked_scores(q, k_cache, valid_len, scale, gen_start, gen_end, per_query=True)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return _apply_pv(p, v_cache).to(q.dtype)
@@ -234,21 +247,27 @@ def decode_attention(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Single-token GQA attention against the preallocated cache.
+    """GQA attention of a decode step (T = 1) or a speculative verify step
+    (T > 1) against the preallocated cache.
 
-    q: (B, 1, H, D) this step's queries (RoPE applied); k_cache, v_cache:
+    q: (B, T, H, D) this step's queries (RoPE applied), 1 <= T <=
+    ``MAX_DECODE_QUERIES`` on CUDA; query ``i`` of row ``b`` sees the
+    positions ``[0, valid_len[b] + i)`` and the window (T = 1: the decode
+    step's ``[0, valid_len[b])``). k_cache, v_cache:
     (B, S, Hkv, D), typically one layer's view of the (L, B, S, Hkv, D)
     cache, read through their strides: in q.dtype, or int8 with the
     (B, S, Hkv) fp32 row scales ``k_scale`` and ``v_scale`` (views of the
-    int8 cache's scales). Returns (B, 1, H, D) in q.dtype. One launch: a
-    thread-block cluster per (batch row, kv head) holds the row's scores in
-    shared memory, so a longer cache than ``decode_max_len(H // Hkv, D)``
+    int8 cache's scales). Returns (B, T, H, D) in q.dtype. One launch: a
+    thread-block cluster per (batch row, query, kv head) holds the row's
+    scores in shared memory, so a longer cache than ``decode_max_len(H // Hkv, D)``
     positions (25600 at 8 query heads a kv head and head_dim 256) raises a
     ``ValueError`` before any launch. The result depends on the visible
     rows, not on S: the same q and visible rows in a longer buffer give the
-    same bits. ``gen_start`` is a host int; ``gen_end`` a host int or a
-    one-element int32 tensor on q's device, which the kernel reads there
-    (batched serving's window end moves every step of a captured graph).
+    same bits, and query ``i`` of a verify call gives the bits of a T = 1
+    call at visible length ``valid_len[b] + i``. ``gen_start`` is a host
+    int; ``gen_end`` a host int or a one-element int32 tensor on q's
+    device, which the kernel reads there (batched serving's window end
+    moves every step of a captured graph).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(
@@ -265,7 +284,9 @@ def decode_attention(
                 f"decode_attention: an int8 cache needs k_scale and v_scale, fp32 "
                 f"({b}, {s_len}, {hkv}) on {q.device}"
             )
-    if t != 1 or v_cache.shape != k_cache.shape or k_cache.shape[0] != b or s_len < 1:
+    if not 1 <= t <= MAX_DECODE_QUERIES:
+        raise ValueError(f"decode_attention: the kernel takes 1 to {MAX_DECODE_QUERIES} queries a row, got {t}")
+    if v_cache.shape != k_cache.shape or k_cache.shape[0] != b or s_len < 1:
         raise ValueError(
             f"decode_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, {tuple(v_cache.shape)}"
         )
@@ -281,13 +302,13 @@ def decode_attention(
     win_end = _device_window_end(gen_end, q)
     win = _window(gen_start, None if win_end is not None else gen_end)
     valid = None if valid_len is None else _valid(valid_len, b, s_len, q.device)
-    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     rc = lib.pg_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         None if valid is None else valid.data_ptr(),
-        b, s_len, h, hkv, d,
-        q.stride(0), q.stride(2),
+        b, t, s_len, h, hkv, d,
+        q.stride(0), q.stride(1), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         *((k_scale.data_ptr(), v_scale.data_ptr(), *k_scale.stride(), *v_scale.stride())

@@ -1,6 +1,7 @@
 """The port's CLI (``inference_torch.py``) on the CPU: ``--demo
---only_cpu=True`` exits 0, a missing ``--prompt`` exits 2, and its
-``test_inference`` returns the JAX CLI's string on the same tiny weights.
+--only_cpu=True`` exits 0 (also with ``--speculative``), a missing
+``--prompt`` exits 2, and its ``test_inference`` returns the JAX CLI's
+string on the same tiny weights, plain and speculative.
 
 The CLIs are imported as modules, so pytest does not collect their
 ``test_inference`` functions as tests.
@@ -29,12 +30,23 @@ def image_path(tmp_path_factory):
     return str(path)
 
 
-def test_demo_on_the_cpu_exits_0(image_path):
-    proc = subprocess.run(
+def _demo(image_path, *extra):
+    return subprocess.run(
         [sys.executable, os.path.join(REPO, "inference_torch.py"), "--demo", "--only_cpu=True",
-         "--prompt", "describe", "--image_file_path", image_path, "--max_tokens_to_generate", "5"],
+         "--prompt", "describe", "--image_file_path", image_path, "--max_tokens_to_generate", "5",
+         *extra],
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
+
+
+def test_demo_on_the_cpu_exits_0(image_path):
+    proc = _demo(image_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "Device in use:  cpu" in proc.stdout and "Running inference\ndescribe" in proc.stdout
+
+
+def test_speculative_demo_on_the_cpu_exits_0(image_path):
+    proc = _demo(image_path, "--speculative")
     assert proc.returncode == 0, proc.stderr
     assert "Device in use:  cpu" in proc.stdout and "Running inference\ndescribe" in proc.stdout
 
@@ -63,3 +75,8 @@ def test_test_inference_returns_the_jax_cli_string(image_path, quant):
     want = jax_cli.test_inference(params, cfg, jproc, "describe", image_path, 12, 0.8, 0.9, False)
     got = torch_cli.test_inference(model, tproc, "describe", image_path, 12, 0.8, 0.9, False)
     assert got == want and len(set(got)) > 2
+    # --speculative: JAX's speculative string, which is the plain one.
+    spec = torch_cli.test_inference(model, tproc, "describe", image_path, 12, 0.8, 0.9, False,
+                                    speculative=True)
+    assert spec == jax_cli.test_inference(params, cfg, jproc, "describe", image_path, 12, 0.8, 0.9,
+                                          False, speculative=True) == want

@@ -8,7 +8,10 @@ path to its plain path, in bf16 and in the int8, int4 and w4a8 modes and
 with the int8 KV cache; decode attention gives one output for one set of
 visible rows at every cache length; the decode step replayed as a CUDA
 graph must give the eager step's tokens and launch counts, greedy and
-sampled, and the prefill's graph the eager prefill's bits.
+sampled, and the prefill's graph the eager prefill's bits; the decode
+kernel's verify shape (T queries) gives each query row the bits of the
+one-query kernel, and the speculative verify iteration replayed as a CUDA
+graph the eager iteration's tokens and counts.
 """
 import dataclasses
 
@@ -691,3 +694,106 @@ def test_checkpoint_loads_onto_the_card(cuda, tmp_path, streaming):
     want = model.state_dict()
     assert all(t.is_cuda and t.dtype == torch.bfloat16 and torch.equal(t, want[k])
                for k, t in loaded.state_dict().items())
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: the decode kernel's verify shape, the verify
+# iteration as a CUDA graph (generation.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("t", [2, 4, 8, 13, 16])
+@pytest.mark.parametrize("s_len,valid", [(308, [300]), (1100, [700, 1090]), (4128, [4100])])
+def test_verify_decode_rows_are_the_one_query_kernel(cuda, kv_int8, t, s_len, valid):
+    """Query i of row b sees valid[b] + i positions: bit for bit the T = 1
+    call at that length, within the bar of the plain version, blind to
+    rows past the last query's positions."""
+    gen = torch.Generator(device=cuda).manual_seed(t + s_len)
+    b = len(valid)
+    q = _rand(gen, (b, t, 8, 256), cuda)
+    k, v = _rand(gen, (2, b, s_len, 1, 256), cuda), _rand(gen, (2, b, s_len, 1, 256), cuda)
+    kw = {}
+    if kv_int8:
+        (k, ks), (v, vs) = gemma.quantize_kv_rows(k), gemma.quantize_kv_rows(v)
+        kw = {"k_scale": ks[1], "v_scale": vs[1]}
+    k, v = k[1], v[1]  # a layer of a stacked cache
+    vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+    before = ca.launch_counts()["decode_attention"]
+    out = ca.decode_attention(q, k, v, vl, **kw)
+    assert ca.launch_counts()["decode_attention"] == before + 1 and out.shape == q.shape
+    for i in range(t):
+        assert torch.equal(out[:, i:i + 1], ca.decode_attention(q[:, i:i + 1], k, v, vl + i, **kw))
+    torch.testing.assert_close(out, ca.decode_attention_plain(q, k, v, vl, **kw), rtol=RTOL, atol=ATOL)
+    for r, n_vis in enumerate(valid):
+        k[r, n_vis + t - 1:], v[r, n_vis + t - 1:] = (127, 127) if kv_int8 else (1e4, 1e4)
+        if kv_int8:
+            kw["k_scale"][r, n_vis + t - 1:], kw["v_scale"][r, n_vis + t - 1:] = 1e4, 1e4
+    assert torch.equal(ca.decode_attention(q, k, v, vl, **kw), out)
+
+
+def test_verify_decode_refuses_17_queries(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    k = _rand(gen, (1, 308, 1, 256), cuda)
+    vl = torch.tensor([290], dtype=torch.int32, device=cuda)
+    before = ca.launch_counts()["decode_attention"]
+    with pytest.raises(ValueError, match="queries"):
+        ca.decode_attention(_rand(gen, (1, 17, 8, 256), cuda), k, k, vl)
+    assert ca.launch_counts()["decode_attention"] == before
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "longest"])
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_spec_graph_gives_the_eager_iterations_and_launch_counts(cuda, kv_int8, drafter):
+    """decode_steps_spec (replays of the captured verify iteration) against
+    the iteration issued launch by launch on the same state: the same
+    tokens, counts, buffers and cache length; each replay adds one
+    iteration's launches."""
+    cfg = paligemma_tpu_torch.tiny_config()
+    cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(
+        cfg.vision_config, hidden_size=32, intermediate_size=64))
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():  # a final norm whose greedy streams change token
+        model.llm.final_norm.weight.normal_(-1.0, 1.0, generator=torch.Generator(device=cuda).manual_seed(3))
+    n_img, layers = cfg.vision_config.num_image_tokens, cfg.text_config.num_hidden_layers
+    ids = torch.cat([torch.full((1, n_img), cfg.image_token_index),
+                     torch.tensor([[5, 6, 7, 5, 6, 7, 5, 6]])], 1).to(cuda, torch.int32)
+    pix = torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(0)).to(cuda, torch.bfloat16)
+    cache_dtype, k, n, t = (torch.int8 if kv_int8 else None), 4, 3, ids.shape[1]
+
+    def prefilled():
+        cache = generation.make_cache(model, 1, t, 40, cache_dtype)
+        logits, cache = generation.prefill(model, ids, pix, cache)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ids_buf = torch.zeros((1, t + 40), dtype=torch.int32, device=cuda)
+        ids_buf[:, :t], ids_buf[0, t] = ids, first[0, 0]
+        return first, cache, ids_buf, torch.tensor(t + 1, dtype=torch.int32, device=cuda)
+
+    first, cache, ids_buf, buf_len = prefilled()
+    st = generation._SpecState(
+        token=first.clone(), ids=torch.zeros((1, cache.max_len + k), dtype=torch.int32, device=cuda),
+        buf_len=buf_len.clone(), out=torch.zeros((1, cache.max_len + k), dtype=torch.int32, device=cuda),
+        produced=torch.zeros((), dtype=torch.int32, device=cuda), iters=torch.zeros((), dtype=torch.int32,
+                                                                                        device=cuda),
+        temperature=torch.zeros((1, 1), device=cuda), top_p=torch.zeros((1, 1), device=cuda))
+    st.ids[:, :ids_buf.shape[1]] = ids_buf
+    while int(st.produced) < 12:
+        generation._verify_iteration(model, cache, st, kernels.KERNELS, k, n, drafter, False)
+    want = (st.out[0, :int(st.produced)].tolist(), int(st.produced), int(st.iters), int(cache.length))
+
+    first, cache, ids_buf, buf_len = prefilled()
+    before = kernels.launch_counts()
+    out, produced, iters, tok, cache, ids_out, bl = generation.decode_steps_spec(
+        model, first, cache, ids_buf, buf_len, 12, k=k, n=n, drafter=drafter)
+    counts = {x: v - before[x] for x, v in kernels.launch_counts().items()}
+    p = int(produced)
+    assert (out[0, :p].tolist(), p, int(iters), int(cache.length)) == want
+    assert cache.host_length == int(cache.length) == t + p and int(bl) == t + 1 + p
+    assert int(tok) == want[0][-1] and ids_out[0, t + 1:t + 1 + p].tolist() == want[0]
+    assert counts == {**{x: 0 for x in counts}, "decode_attention": int(iters) * layers}
+    # generate_spec: 16 tokens from the prefill's first (the rest may part
+    # from generate's where bf16 projections of k rows and of one row round
+    # a near tie apart; chip_smoke bounds that).
+    got = generation.generate_spec(model, ids, pix, 16, -1, cache_dtype=cache_dtype, chunk=8, k=k,
+                                   drafter=drafter)
+    assert len(got) == 16 and got[0] == int(first)
