@@ -139,12 +139,38 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     ms/token of a ``decode_steps_spec`` chunk against a ``decode_steps``
     chunk; sampled, one seed one stream and temperature 0 the greedy one.
 
+14. Continuous serving (after phase 12; ``phase_continuous``; the final
+    norm redrawn as in phase 7): twelve requests (phase 4's three and nine
+    more over two prompt buckets, 8-48 new tokens) through 4-slot engines
+    with chunk 8: bf16 plain, int8 with the int8 KV cache
+    (``kv_quant``), bf16 speculative (k = 8, adaptive, the cache window)
+    with each drafter, and bf16 with greedy and sampled requests mixed
+    (the sampled streams repeat under one seed). Every greedy request
+    gives its batch-1 ``generate`` tokens in that arm, or its first
+    difference falls where batch 1's top two logits lie within phase 5's
+    2% bar; every request ends without an error; launches per engine.
+    Then the throughput cell at ``server.py``'s shipped configuration (32
+    slots, chunk 32, the adaptive k = 8 ladder at spec_chunk 16, the
+    window on, one bucket of the image tokens + 64, 64 new tokens; 64
+    requests submitted at once) in bf16 and int8: every graph captured by
+    ``prepare`` (ms and MiB each), an untimed run, a timed run in which no
+    graph may be captured (delivered tokens/s of wall time, chunks, join
+    groups, the ``host_t`` split, window resizes, staged upload hits and
+    misses, peak MiB), and a run under torch.profiler for the device-busy
+    share. Then ``server_torch.build_server`` serves the in-memory bf16
+    model on localhost (continuous, 4 slots, chunk 8): four concurrent
+    /generate requests and one /generate_stream give the tokens an engine
+    of the same settings gives in-process, and /metrics answers.
+
 Phase 3 also holds batched serving's decode (batch 4, per-row valid, the
 window's end read on the device: bit for bit the host end's, also from a
 replayed graph), each row of batch-4 flash calls bit for bit its batch-1
 call, flash at the ablation's buffers (T = S = 512 with 276 valid, 640,
 768, 1024), the q8 GEMV at M = 4, the GEMM at 4 x 276 and 640 / 1024 rows,
-and the w4a8 MLP at 4 rows; phase 6 times them beside the rest.
+and the w4a8 MLP at 4 rows; phase 6 times them beside the rest, and the
+continuous engine's shapes: decode attention at 33 rows (per-row valid)
+at each window width of the throughput cell and its k = 8 verify, q8 at
+33 and 264 rows, the w4a8 MLP at 33 rows.
 
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -931,6 +957,36 @@ def _attention_cost(b, t, s_len, h, hkv, d):
     return 2 * 2 * b * t * h * d + 2 * 2 * b * s_len * hkv * d, 4 * b * h * t * s_len * d
 
 
+def _slot_decode_rows(torch, gen, dev, prompt_len):
+    """Phase 6's rows of the continuous engine's shapes at the throughput
+    cell (33 rows: 32 slots and the trash row, each at its own length): one
+    decode step at each window width, and the per-row verify of k = 8 (18
+    launches a slot step or verify; not in the per-launch mean)."""
+    import torch.nn.functional as F
+
+    from paligemma_tpu_torch.ops import cuda_attention as ca
+
+    rows, b = [], THROUGHPUT["n_slots"] + 1
+    for s_len in _throughput_windows():
+        kc, vc = (_rand(torch, gen, (b, s_len, 1, 256), dev) for _ in range(2))
+        lens = torch.randint(prompt_len - 20, s_len - 2 * 8 - 1, (b,), generator=gen, device=dev).to(torch.int32)
+        for t in (1, 8):
+            q = _rand(torch, gen, (b, t, 8, 256), dev)
+            vis = lens[:, None] + 1 + torch.arange(t, device=dev)[None, :]  # query i sees valid + i
+            seen = torch.arange(s_len, device=dev)[None, None, :] < vis[:, :, None]  # (B, T, S)
+            lib = [q.reshape(b, 1, t * 8, 256), kc.reshape(b, 1, s_len, 256), vc.reshape(b, 1, s_len, 256)]
+            mask = seen.repeat_interleave(8, dim=1)[:, None]
+            n_vis = int((lens + t).sum())  # K/V rows visible to the last query, once
+            args = (q, kc, vc, lens + 1)
+            rows.append((f"slot {'verify T=8' if t == 8 else 'step T=1'} B={b} S={s_len} per-row valid "
+                         f"H=8 Hkv=1 D=256 (18 launches a {'verify' if t == 8 else 'slot step'})", 0,
+                         lambda i, a=args: ca.decode_attention(*a, scale=256**-0.5),
+                         lambda i, a=args: ca.decode_attention_plain(*a, scale=256**-0.5),
+                         lambda i, a=lib, m=mask: F.scaled_dot_product_attention(*a, attn_mask=m, scale=256**-0.5),
+                         (2 * 2 * b * t * 8 * 256 + 2 * 2 * n_vis * 256, 4 * 8 * int(vis.sum()) * 256, "bf16")))
+    return rows
+
+
 def phase_timing(torch, prompt_len):
     """Device ms per call of kernel and plain version at the main-path
     shapes, in turns (plain, kernel, kernel, plain), with each call's bound
@@ -1078,6 +1134,7 @@ def phase_timing(torch, prompt_len):
                      lambda i, a=v_args: ca.decode_attention_plain(*a, scale=256**-0.5),
                      lambda i, a=v_lib, m=v_seen: sdpa(*a, attn_mask=m[None, None], scale=256**-0.5),
                      (2 * 2 * t * 8 * 256 + 2 * 2 * n_vis * 256, 4 * 8 * seen_rows * 256, "bf16")))
+    rows += _slot_decode_rows(torch, gen, dev, prompt_len)
     result["decode_attention"] = _time_rows(torch, "decode_attention", rows,
                                             library="F.scaled_dot_product_attention (bf16 cache only)")
 
@@ -1121,6 +1178,12 @@ def phase_timing(torch, prompt_len):
         q8_row("batch-4 decode gate_up M=4 O=32768 D=2048", 0, 4, 32768, 2048),
         q8_row("batch-4 decode down M=4 O=2048 D=16384", 0, 4, 2048, 16384),
         q8_row("batch-4 lm_head M=4 O=257152 D=2048 fp32", 0, 4, 257152, 2048, f32=True),
+        # The continuous engine's int8 arm: a slot step of 33 rows (GEMV)
+        # and a k = 8 verify of 264 rows (GEMM).
+        *(q8_row(f"slot {what} M={m} O={o} D={d}", 0, m, o, d)
+          for m, what in ((33, "step"), (264, "verify k=8"))
+          for o, d in ((2560, 2048), (2048, 2048), (32768, 2048), (2048, 16384))),
+        q8_row("slot step lm_head M=33 O=257152 D=2048 fp32", 0, 33, 257152, 2048, f32=True),
     ], library="F.linear on the weight dequantized to bf16 ahead of time (bf16 out)")
     del q8_row
 
@@ -1259,6 +1322,7 @@ def phase_timing(torch, prompt_len):
     result["w4a8_geglu"]["mlp_w4a8"] = _time_rows(torch, "mlp_w4a8", [
         mlp_row("decode MLP M=1 D=2048 I=16384 (2 launches)", 18, 1),
         mlp_row("MLP M=64 D=2048 I=16384 (4 launches)", 0, 64),
+        mlp_row("slot step MLP M=33 D=2048 I=16384 (4 launches)", 0, 33),
     ])
     del mlp_ws
 
@@ -2399,6 +2463,434 @@ def phase_cli(torch):
             check("cuda" in device, "[cli] the CLI did not run on cuda")
 
 
+# Phase 14: the identity engines' traffic (phase 4's three requests and
+# nine more over two prompt buckets), 4 slots, chunk 8; the throughput cell
+# at server.py's shipped configuration.
+CONT_PROMPTS = [
+    "what is shown?", "total?", "read the title of this document please",
+    "list every number that appears in the second column of the table, in order, and their units",
+    "caption en", "describe the image in one short sentence",
+    "is there a chart on this page and what does its vertical axis measure over the period",
+    "who signed it?", "extract the invoice date, the due date and the amount due from this scanned page",
+]
+CONT_BUDGETS = [8, 12, 16, 20, 24, 28, 36, 40, 48]
+CONT_SLOTS, CONT_CHUNK, CONT_MAX_NEW = 4, 8, 48
+CONT_EXTRA_BUCKETS = (32, 96)  # text tokens on top of the image tokens
+THROUGHPUT = dict(n_slots=32, chunk=32, spec_ks=(8,), spec_adaptive=True, spec_chunk=16, kv_window=True,
+                  max_new_tokens=64)
+THROUGHPUT_REQUESTS, THROUGHPUT_EXTRA = 64, 64
+
+
+def _throughput_windows():
+    """The cache window's widths of the throughput cell."""
+    from paligemma_tpu_torch import continuous
+
+    cfg_budget = 256 + THROUGHPUT_EXTRA  # 3B-224: 256 image tokens
+    k = max(THROUGHPUT["spec_ks"])
+    slack = max(THROUGHPUT["chunk"], THROUGHPUT["spec_chunk"] * k) + k
+    s_len = cfg_budget + THROUGHPUT["max_new_tokens"] + slack
+    return continuous.window_buckets(cfg_budget, THROUGHPUT["chunk"], slack, s_len)
+
+
+def _cont_traffic():
+    """(prompt, image, max_new_tokens) of the identity engines' 12 requests."""
+    import numpy as np
+    from PIL import Image
+
+    out = [(REQUESTS[i][0], _request_image(i), MAX_NEW_TOKENS) for i in range(len(REQUESTS))]
+    rng = np.random.RandomState(SEED + 14)
+    for prompt, budget in zip(CONT_PROMPTS, CONT_BUDGETS):
+        w, h = int(rng.randint(120, 400)), int(rng.randint(120, 400))
+        out.append((prompt, Image.fromarray(rng.randint(0, 256, (h, w, 3), dtype=np.uint8)), budget))
+    return out
+
+
+def _inputs_of(torch, model, proc, prompt, image):
+    out = proc([prompt], [image])
+    dev = model.llm.final_norm.weight.device
+    return (torch.from_numpy(out["input_ids"]).to(dev),
+            torch.from_numpy(out["pixel_values"]).to(dev, model.vision.patch_embedding.weight.dtype))
+
+
+def _first_difference(a, b):
+    div = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    return div if div is not None or len(a) == len(b) else min(len(a), len(b))
+
+
+def _held_to_batch1(torch, model, proc, tag, prompt, image, got, ref, cache_dtype):
+    """Phase 10's rule: the tokens are batch 1's, or their first difference
+    falls where batch 1's top two logits lie within phase 5's 2% bar.
+    Returns the first difference (None: equal)."""
+    div = _first_difference(got, ref)
+    if div is not None:
+        ids, pix = _inputs_of(torch, model, proc, prompt, image)
+        gap, bar = _top_two_gap(torch, model, ids, pix, ref[:div], cache_dtype)
+        log(f"{tag} {prompt[:24]!r}: first difference from batch 1 at {div} of {len(ref)}, batch 1's top two "
+            f"{gap:.4e} apart (bar {bar:.4e})")
+        check(gap <= bar, f"{tag} {prompt[:24]!r}: tokens differ from batch 1 at {div} off a near tie")
+    return div
+
+
+def _run_engine(torch, eng, traffic, sampled=()):
+    """Submit the traffic at once and run it: the requests, with the kernel
+    launches of the run (counts zeroed just before it, read just after)."""
+    from paligemma_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    reqs = [eng.submit(p, im, m, **({"do_sample": True, "temperature": SAMPLE_TEMPERATURE,
+                                      "top_p": SAMPLE_TOP_P} if i in sampled else {}))
+            for i, (p, im, m) in enumerate(traffic)]
+    eng.run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(all(r.done and r.error is None for r in reqs),
+          f"a request ended with an error: {[repr(r.error) for r in reqs if r.error is not None]}")
+    return reqs, counts
+
+
+def phase_continuous(torch, model, proc, tok, cfg, main_counts):
+    """Continuous serving (``continuous.ContinuousBatcher``) on the seeded
+    3B model, the final norm redrawn as in phase 7: identity engines against
+    batch 1, the throughput cell at server.py's shipped configuration in
+    bf16 and int8, and ``server_torch.py``'s builder over HTTP."""
+    with _tokens_that_change(torch, model):
+        return _phase_continuous(torch, model, proc, tok, cfg, main_counts)
+
+
+def _phase_continuous(torch, model, proc, tok, cfg, main_counts):
+    from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    n_img = cfg.vision_config.num_image_tokens
+    traffic = _cont_traffic()
+    record = {"identity": [], "throughput": [], "http": None}
+    int8 = quantization.quantize_params(model, llm_only=True, mode="int8")
+    engines = [
+        ("bf16 plain", model, {}, None, ()),
+        ("int8+kv_int8 kv_quant", int8, {"kv_quant": True}, torch.int8, ()),
+        ("bf16 spec k=8 adaptive kv_window ngram", model,
+         {"spec_ks": (8,), "spec_adaptive": True, "spec_chunk": CONT_CHUNK // 2, "kv_window": True}, None, ()),
+        ("bf16 spec k=8 adaptive kv_window longest", model,
+         {"spec_ks": (8,), "spec_adaptive": True, "spec_chunk": CONT_CHUNK // 2, "kv_window": True,
+          "spec_drafter": "longest"}, None, ()),
+        ("bf16 mixed greedy/sampled", model, {}, None, (1, 4, 7, 10)),
+    ]
+    refs = {}
+    for name, m, kw, cache_dtype, sampled in engines:
+        tag = f"[continuous {name}]"
+        key = (id(m), cache_dtype)
+        if key not in refs:
+            refs[key] = [generation.generate(m, *_inputs_of(torch, m, proc, p, im), n, tok.eos_token_id,
+                                             cache_dtype=cache_dtype)[0] for p, im, n in traffic]
+        ref = refs[key]
+
+        def engine():
+            return ContinuousBatcher(m, proc, n_slots=CONT_SLOTS, chunk=CONT_CHUNK, max_new_tokens=CONT_MAX_NEW,
+                                     prompt_budget=[n_img + e for e in CONT_EXTRA_BUCKETS], seed=SEED, **kw)
+
+        eng = engine()
+        t0 = time.perf_counter()
+        reqs, counts = _run_engine(torch, eng, traffic, sampled)
+        wall = time.perf_counter() - t0
+        eng.close()
+        main_counts.update(counts)
+        check(counts.get("decode_attention", 0) > 0 and counts.get("flash_attention", 0) > 0,
+              f"{tag} the engine launched no attention kernel")
+        divs = [None if i in sampled else
+                _held_to_batch1(torch, m, proc, tag, p, im, r.tokens, ref[i], cache_dtype)
+                for i, ((p, im, _), r) in enumerate(zip(traffic, reqs))]
+        extra = ""
+        if sampled:
+            again, _ = _run_engine(torch, engine(), traffic, sampled)
+            same = all(a.tokens == b.tokens for a, b in zip(reqs, again))
+            check(same, f"{tag} one seed gave two sampled streams")
+            check(all(0 <= x < cfg.text_config.vocab_size for i in sampled for x in reqs[i].tokens),
+                  f"{tag} sampled token out of range")
+            extra = f" | sampled rows {list(sampled)} repeat under one seed: {same}"
+        if eng.spec_k:
+            extra += (f" | spec chunks {sum(eng.spec_mode_log)} of {len(eng.spec_mode_log)}, tokens/verify "
+                      f"{eng.spec_emitted / max(eng.spec_verifies, 1):.3f}, window resizes {eng.window_resizes} "
+                      f"(buckets {list(eng.window_buckets)})")
+        equal = sum(d is None for i, d in enumerate(divs) if i not in sampled)
+        log(f"{tag} {len(traffic)} requests, {sum(len(r.tokens) for r in reqs)} tokens in {wall:.2f} s "
+            f"(captures included), {eng.chunks_run} chunks, {eng.join_groups} join groups | greedy requests "
+            f"equal to batch 1: {equal} of {len(traffic) - len(sampled)}, first differences {divs} | launches "
+            f"{counts} | pixel path: {'affine' if eng.pixel_affine else 'gather'}{extra}")
+        record["identity"].append({"engine": name, "first_differences": divs, "launches": counts,
+                                   "wall_s": wall, "pixel_affine": eng.pixel_affine})
+        del eng
+    refs.clear()
+
+    for name, m in (("bf16", model), ("int8", int8)):
+        record["throughput"].append(_throughput_arm(torch, name, m, proc, cfg, main_counts))
+        gc.collect()
+        torch.cuda.empty_cache()
+    del int8
+    record["http"] = _http_arm(torch, model, proc, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def _throughput_traffic(n):
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 64)
+    # The prompts that fit the cell's one bucket (BOS + text + newline).
+    prompts = [p for p in [r[0] for r in REQUESTS] + CONT_PROMPTS if len(p) + 2 <= THROUGHPUT_EXTRA]
+    return [(prompts[i % len(prompts)],
+             Image.fromarray(rng.randint(0, 256, (int(rng.randint(150, 400)), int(rng.randint(150, 400)), 3),
+                                         dtype=np.uint8)),
+             THROUGHPUT["max_new_tokens"]) for i in range(n)]
+
+
+def _throughput_arm(torch, name, model, proc, cfg, main_counts):
+    """The shipped configuration (32 slots, chunk 32, the adaptive k = 8
+    ladder at spec_chunk 16, the cache window, one prompt bucket of the
+    image tokens + 64, 64 new tokens) under 64 requests submitted at once:
+    every graph captured ahead (``prepare``), one untimed run, one timed
+    run (no capture allowed in it), one run under torch.profiler for the
+    device-busy share."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+    from paligemma_tpu_torch.ops import kernels
+
+    tag = f"[continuous throughput {name}]"
+    traffic = _throughput_traffic(THROUGHPUT_REQUESTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatcher(model, proc, prompt_budget=cfg.vision_config.num_image_tokens + THROUGHPUT_EXTRA,
+                            seed=SEED, **THROUGHPUT)
+    prep_ms = eng.prepare()
+    _run_engine(torch, eng, traffic)  # untimed
+    n_graphs = len(eng.graph_log)
+    before = {k: getattr(eng, k) for k in ("tokens_delivered", "chunks_run", "join_groups", "window_resizes",
+                                          "staged_hits", "staged_misses", "spec_emitted", "spec_verifies")}
+    host0 = dict(eng.host_t)
+    spec0 = len(eng.spec_mode_log), sum(eng.spec_mode_log)
+    t0 = time.perf_counter()
+    reqs, counts = _run_engine(torch, eng, traffic)
+    wall = time.perf_counter() - t0
+    main_counts.update(counts)
+    delta = {k: getattr(eng, k) - v for k, v in before.items()}
+    host = {k: round(v - host0.get(k, 0.0), 4) for k, v in eng.host_t.items()}
+    check(len(eng.graph_log) == n_graphs, f"{tag} a graph was captured inside the timed run")
+    check(delta["tokens_delivered"] == sum(len(r.tokens) for r in reqs), f"{tag} tokens_delivered is off")
+    tok_s = delta["tokens_delivered"] / wall
+    spec_chunks = sum(eng.spec_mode_log) - spec0[1], len(eng.spec_mode_log) - spec0[0]
+    # The device-busy share: the kernels' device time over the wall time of
+    # a run under the profiler (CUDA activity only).
+    prof_acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=prof_acts) as prof:
+        t1 = time.perf_counter()
+        _run_engine(torch, eng, traffic)
+        prof_wall = time.perf_counter() - t1
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = busy_us / 1e6 / prof_wall
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    eng.close()
+    graphs = eng.graph_log
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = _slot_step_ms(torch, model, proc, cfg, traffic)
+    log(f"{tag} {THROUGHPUT_REQUESTS} requests at once, {delta['tokens_delivered']} tokens delivered in "
+        f"{wall:.3f} s: {tok_s:.1f} tokens/s of wall time | chunks {delta['chunks_run']} (speculative "
+        f"{spec_chunks[0]} of {spec_chunks[1]}, tokens/verify "
+        f"{delta['spec_emitted'] / max(delta['spec_verifies'], 1):.3f}) | join groups {delta['join_groups']}")
+    log(f"{tag} host_t seconds {json.dumps(host)}")
+    log(f"{tag} window resizes {delta['window_resizes']} (buckets {list(_throughput_windows())}) | staged "
+        f"uploads: hits {delta['staged_hits']}, misses {delta['staged_misses']}")
+    log(f"{tag} graphs captured {len(graphs)} by prepare() in {prep_ms:.1f} ms: "
+        + "; ".join(f"{g['key']} {g['ms']:.1f} ms {g['mib']:.1f} MiB" for g in graphs))
+    log(f"{tag} {THROUGHPUT['n_slots']} occupied slots ({THROUGHPUT['n_slots'] + 1} rows), CUDA events over "
+        f"replays from one state: plain slot step "
+        f"{step_ms['plain']:.4f} ms (window {step_ms['plain_window']}), k = 8 verify "
+        f"{step_ms['verify']:.4f} ms (window {step_ms['verify_window']})")
+    log(f"{tag} peak {peak:.1f} MiB (max_memory_allocated over the arm) | device busy {busy:.4f} of the wall "
+        f"time ({busy_us / 1e3:.1f} ms of kernels in a {prof_wall * 1e3:.1f} ms profiled run)")
+    check(delta["chunks_run"] > 0 and tok_s > 0, f"{tag} nothing ran")
+    out = {"arm": name, "tokens_per_s": tok_s, "wall_s": wall, "tokens": delta["tokens_delivered"],
+           "chunks": delta["chunks_run"], "spec_chunks": spec_chunks[0], "join_groups": delta["join_groups"],
+           "host_t": host, "window_resizes": delta["window_resizes"], "staged_hits": delta["staged_hits"],
+           "staged_misses": delta["staged_misses"], "graphs": graphs, "peak_mib": peak,
+           "device_busy": busy, "launches": counts, "slot_step_ms": step_ms}
+    return out
+
+
+def _slot_step_ms(torch, model, proc, cfg, traffic):
+    """Device ms of one plain slot step and one k = 8 verify with the
+    throughput cell's 32 slots occupied (just joined):
+    each flavour's graph (captured untimed) replayed 16 times from the same
+    saved state between CUDA events, best of 3."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    eng = ContinuousBatcher(model, proc, prompt_budget=cfg.vision_config.num_image_tokens + THROUGHPUT_EXTRA,
+                            seed=SEED, prefetch=False, **THROUGHPUT)
+    for p, im, m in traffic[: eng.n_slots]:
+        eng.submit(p, im, m)
+    eng._fill_slots()  # one group joins: every slot at its prompt's length
+    c = eng.full_cache
+    tensors = eng.state.tensors() + [c.k, c.v]
+    saved = [x.clone() for x in tensors]
+    top = int(max(eng.host_lengths))
+    out, reps = {}, 16
+    for name, k, advance in (("plain", 0, THROUGHPUT["chunk"]), ("verify", 8, reps * 8 + 8)):
+        width = next(b for b in _throughput_windows() if b >= top + advance + 1)
+        eng.window, eng.cache = width, eng._view(width)
+        runner = eng._step_runner(k, False)
+        times = []
+        for _ in range(3):
+            for dst, src in zip(tensors, saved):
+                dst.copy_(src)
+            eng.state.step.zero_()
+            eng.state.counts.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            runner.run(reps, (None, None))
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+        out[name], out[f"{name}_window"] = min(times), width
+    eng.close()
+    del eng, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _http_arm(torch, model, proc, cfg):
+    """``server_torch.build_server`` serving the in-memory bf16 model on
+    localhost in continuous mode (4 slots, chunk 8, plain chunks): four
+    concurrent /generate requests and one /generate_stream give exactly the
+    tokens an engine of the same settings gives them in-process, and
+    /metrics answers. The in-process engine joins the requests in the
+    server's join groups (its ``join_log``), at the same group batches: a
+    prefill at another group batch may round a near tie apart."""
+    import base64
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    import server_torch
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    with socket.socket() as sck:
+        sck.bind(("127.0.0.1", 0))
+        port = sck.getsockname()[1]
+    args = server_torch.parser().parse_args(
+        ["--continuous", "--n_slots", "4", "--chunk", "8", "--max_new_cap", "32", "--spec_k", "0",
+         "--kv_window", "off", "--port", str(port)])
+    t0 = time.perf_counter()
+    server, _, runner = server_torch.build_server(model, proc, args, "paligemma_3b_pt_224 seeded bf16")
+    build_s = time.perf_counter() - t0
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{port}"
+    traffic = _cont_traffic()[:5]
+    blobs = []
+    for _, im, _ in traffic:
+        buf = io.BytesIO()
+        im.save(buf, "PNG")
+        blobs.append(base64.b64encode(buf.getvalue()).decode())
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=300)
+
+    got = {}
+    try:
+        def worker(i):
+            with post("/generate", {"prompt": traffic[i][0], "image_b64": blobs[i], "max_tokens": 24}) as r:
+                got[i] = json.loads(r.read())["tokens"]
+
+        def streamer(i):
+            toks = []
+            with post("/generate_stream", {"prompt": traffic[i][0], "image_b64": blobs[i], "max_tokens": 24}) as r:
+                for line in r:
+                    line = line.decode().strip()
+                    if line.startswith("data: "):
+                        ev = json.loads(line[6:])
+                        check("error" not in ev, f"[http] stream error {ev}")
+                        toks.extend(ev.get("tokens", []))
+            got[i] = toks
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        threads.append(threading.Thread(target=streamer, args=(4,)))
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        http_s = time.perf_counter() - t1
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    check(sorted(got) == list(range(5)), f"[http] only {sorted(got)} of 5 requests answered")
+    check(metrics.get("mode") == "continuous" and metrics.get("tokens_delivered", 0) > 0, "[http] /metrics is off")
+    srv = runner.batcher
+    index = {traffic[i][0]: i for i in range(5)}
+    prompt_of = {r.id: r.prompt for r in srv.completed}
+    srv_groups = [(g_b, [index[prompt_of[m]] for m in members]) for g_b, members in srv.join_log
+                  if all(prompt_of.get(m) in index for m in members)]
+    check(sorted(i for _, ms in srv_groups for i in ms) == list(range(5)),
+          f"[http] the server's join groups {srv_groups} do not hold the 5 requests once each")
+    images = [_image_from_blob(b) for b in blobs]
+    eng = ContinuousBatcher(model, proc, n_slots=4, chunk=8, max_new_tokens=32,
+                            prompt_budget=[cfg.vision_config.num_image_tokens + 64])
+    reqs = _replay_groups(eng, srv_groups, [(traffic[i][0], images[i], 24) for i in range(5)])
+    eng.close()
+    pos = {r.id: i for i, r in reqs.items()}
+    eng_groups = [(g_b, [pos[m] for m in members]) for g_b, members in eng.join_log]
+    log(f"[http] join groups (group batch, requests): server {srv_groups} | in-process {eng_groups}")
+    check(eng_groups == srv_groups, "[http] the in-process engine did not join in the server's groups")
+    same = [got[i] == reqs[i].tokens for i in range(5)]
+    for i in range(5):
+        if not same[i]:
+            log(f"[http] request {i} ({traffic[i][0]!r}): first difference from the in-process engine at "
+                f"{_first_difference(got[i], reqs[i].tokens)} | http {got[i]} | in-process {reqs[i].tokens}")
+    check(all(same), "[http] the server's tokens are not the in-process engine's")
+    log(f"[http] server_torch.build_server (continuous, 4 slots, chunk 8) built and warmed in {build_s:.1f} s | "
+        f"4 concurrent /generate + 1 /generate_stream answered in {http_s:.2f} s | tokens equal to the "
+        f"in-process engine's: {same} | /metrics mode {metrics['mode']}, tokens_delivered "
+        f"{metrics['tokens_delivered']}, chunks_run {metrics['chunks_run']}, graphs_captured "
+        f"{metrics['graphs_captured']}")
+    return {"build_s": build_s, "http_s": http_s, "join_groups": srv_groups, "same_as_in_process": same,
+            "metrics": metrics}
+
+
+def _replay_groups(eng, groups, items):
+    """Run ``items`` (prompt, image, max_new_tokens) through ``eng`` joined in
+    ``groups`` (group batch, item indices), in order: each group is submitted
+    once the engine has as many free slots, so it joins whole. Returns the
+    requests by index."""
+    reqs = {}
+    for _, members in groups:
+        while sum(r is None for r in eng.slot_req) < len(members):
+            eng.step()
+        for i in members:
+            reqs[i] = eng.submit(*items[i])
+        eng.step()
+    eng.run()
+    check(all(r.done and r.error is None for r in reqs.values()),
+          f"a request ended with an error: {[repr(r.error) for r in reqs.values() if r.error is not None]}")
+    return reqs
+
+
+def _image_from_blob(blob):
+    import base64
+    import io
+
+    from PIL import Image
+
+    return Image.open(io.BytesIO(base64.b64decode(blob))).convert("RGB")
+
+
 KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
@@ -2442,6 +2934,7 @@ def main() -> int:
     phase_batched(torch, model, proc, tok, cfg, records, main_counts)
     log(f"[ablation] {json.dumps(phase_ablation(torch, model, proc, main_counts))}")
     phase_cli(torch)
+    log(f"[continuous] {json.dumps(phase_continuous(torch, model, proc, tok, cfg, main_counts), default=str)}")
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
     kernels = []

@@ -167,13 +167,18 @@ class _Captured:
         return self.model_ref() is model and self.buffers == _buffers(cache)
 
     def _capture(self, dev: torch.device, run: Callable, restore: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None, count_warm_up: bool = False):
+                 generator=None, count_warm_up: bool = False, pool=None):
         """Run ``run()`` once on a side stream (PyTorch's warm-up: lazy
         set-up such as cuBLAS handles, workspaces and first loads happens
         there), call ``restore()``, capture ``run()`` (which runs nothing),
         call ``restore()`` again. The capture's counts are what a replay
         adds; the warm-up's stay counted with ``count_warm_up``. Returns
-        (the warm-up's result, the captured run's: the graph's outputs)."""
+        (the warm-up's result, the captured run's: the graph's outputs).
+        ``generator``: one generator, or a sequence of them, that the graph
+        draws from; ``pool``: the memory pool to capture into (None: one of
+        the graph's own). The capture is in ``thread_local`` mode, so CUDA
+        calls of another thread (a serving engine's staged uploads) cannot
+        invalidate it."""
         t0 = time.perf_counter()
         before = kernels.call_counts()
         side = torch.cuda.Stream(dev)
@@ -185,9 +190,10 @@ class _Captured:
             restore()
         mid = kernels.call_counts()
         graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            graph.register_generator_state(generator)
-        with torch.cuda.graph(graph):
+        for gen in (generator if isinstance(generator, (tuple, list)) else (generator,)):
+            if gen is not None:
+                graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
             out = run()
         if restore is not None:
             restore()

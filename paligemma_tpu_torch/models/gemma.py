@@ -27,6 +27,17 @@ final RMSNorm, fp32 logits through the tied embedding.
   threshold). The length advances by T; the caller rolls it back to the
   accepted count, and ``host_length`` is then an upper bound until the
   caller sets it.
+- Per-row lengths (``row_lengths``, continuous batching: each row a slot
+  at its own length) replace the shared length: row b writes at
+  ``row_lengths[b]`` (``+ arange(T)`` in the verify shape, ``index_put_``
+  with (B, T) row and position indices) and sees
+  ``[0, row_lengths[b] + 1 + i)``; ``cache.length`` is neither read nor
+  advanced. A write position past the buffer is clamped to the row's last
+  position (an index past the buffer would be a device-side assert on
+  CUDA): only a row whose length passed the buffer writes there, a free
+  slot that nothing reads until a join rewrites its rows and length. The
+  bounds check of the rows that matter is the caller's, on its host
+  mirror of their lengths (``check_row_room``).
 - Without a cache, ``forward`` is the full bidirectional pass of the
   no-cache ablation arm, under an optional per-row ``LengthMask``.
 - The int8 cache (``QuantKVCache``, ``init_cache(dtype=torch.int8)``) keeps
@@ -45,7 +56,7 @@ final RMSNorm, fp32 logits through the tied embedding.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -159,6 +170,8 @@ class GemmaLayer(nn.Module):
 
     def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
                   mask: Optional[LengthMask] = None, multi_decode: bool = False):
+        """``pos``: the write positions, (T,) int64 shared by every row, or
+        a pair of (B, T) int64 row and position indices (per-row lengths)."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -170,15 +183,15 @@ class GemmaLayer(nn.Module):
         window = {} if mask is None else {
             "valid_len": mask.valid, "gen_start": mask.gen_start, "gen_end": mask.gen_end}
         if cache is not None:
-            # In place at the device positions ``pos`` (T,) int64.
+            # In place at the device positions ``pos``.
             k_st, v_st, row_scales = k, v, {}
             if isinstance(cache, QuantKVCache):
                 (k_st, ks), (v_st, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
-                cache.k_scale[li].index_copy_(1, pos, ks)
-                cache.v_scale[li].index_copy_(1, pos, vs)
+                _write(cache.k_scale[li], pos, ks)
+                _write(cache.v_scale[li], pos, vs)
                 row_scales = {"k_scale": cache.k_scale[li], "v_scale": cache.v_scale[li]}
-            cache.k[li].index_copy_(1, pos, k_st.to(cache.k.dtype))
-            cache.v[li].index_copy_(1, pos, v_st.to(cache.v.dtype))
+            _write(cache.k[li], pos, k_st.to(cache.k.dtype))
+            _write(cache.v[li], pos, v_st.to(cache.v.dtype))
             if t == 1 or multi_decode:  # over the cache (a verify step: T queries)
                 window = {"valid_len": cache.valid, **window}
                 out = fns.decode(q, cache.k[li], cache.v[li], scale=scale, **window, **row_scales)
@@ -230,6 +243,7 @@ def forward(
     fns: KernelFns = KERNELS,
     mask: Optional[LengthMask] = None,
     multi_token_decode: bool = False,
+    row_lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
@@ -248,6 +262,14 @@ def forward(
     empty); on a decode step it replaces the cache's own visible length
     (batched serving: each row's prompt plus the shared generated window,
     whose end may be a device tensor). None: every written position.
+
+    ``row_lengths`` ((B,) int32 on the cache's device; T == 1, or T > 1
+    with ``multi_token_decode``): each row at its own length, the
+    reference's ``row_lengths``. Row b writes this step's K/V at
+    ``row_lengths[b] + arange(T)`` (clamped to the buffer) and its query i
+    sees ``[0, row_lengths[b] + 1 + i)``; RoPE positions are the caller's.
+    The cache's shared length is neither read nor advanced, and the bounds
+    check is the caller's (``check_row_room`` on its host mirror).
     """
     cfg = model.cfg
     dtype = inputs_embeds.dtype
@@ -260,12 +282,21 @@ def forward(
     pos = None
     if multi_token_decode and (cache is None or mask is not None):
         raise ValueError("multi_token_decode needs a cache and no mask")
+    if row_lengths is not None:
+        if cache is None or mask is not None or (t != 1 and not multi_token_decode):
+            raise ValueError("row_lengths needs a cache, no mask and T == 1 (or multi_token_decode)")
+        cols = (row_lengths.long()[:, None] + _arange(t, row_lengths)).clamp_max(cache.max_len - 1)
+        pos = (_arange(b, row_lengths)[:, None].expand(b, t), cols)
+        cache.valid.copy_(row_lengths + 1)  # query i sees valid + i (decode_attention)
+        for li, layer in enumerate(model.layers):
+            h = layer(h, cos, sin, cache, pos, li, fns, None, True)
+        return model.final_norm(h), cache
     if cache is not None:
         if t > 1 and not multi_token_decode and cache.host_length:
             raise ValueError("prefill (T > 1) needs an empty cache")
         if cache.host_length + t > cache.max_len:
             raise ValueError(f"cache full: {cache.host_length} + {t} > {cache.max_len}")
-        pos = cache.length + torch.arange(t, dtype=torch.int64, device=cache.length.device)
+        pos = cache.length + _arange(t, cache.length)
         # A verify step's query i sees [0, length + 1 + i) (decode_attention).
         cache.valid.copy_((cache.length + (1 if multi_token_decode else t)).expand(b))
     for li, layer in enumerate(model.layers):
@@ -274,6 +305,27 @@ def forward(
         cache.length.add_(t)
         cache.host_length += t
     return model.final_norm(h), cache
+
+
+def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int64, device=like.device)
+
+
+def _write(buf: torch.Tensor, pos, val: torch.Tensor) -> None:
+    """Write ``val`` (B, T, ...) into ``buf`` (B, S, ...) at ``pos``: along
+    dim 1 at shared positions (T,), or at per-row (row, position) pairs."""
+    if isinstance(pos, tuple):
+        buf.index_put_(pos, val)
+    else:
+        buf.index_copy_(1, pos, val)
+
+
+def check_row_room(lengths: Sequence[int], t: int, max_len: int) -> None:
+    """Raise ``ValueError`` if a row at one of these host lengths would write
+    ``t`` positions past a buffer of ``max_len``."""
+    top = max(lengths, default=0)
+    if top + t > max_len:
+        raise ValueError(f"cache full: a row at {top} + {t} > {max_len}")
 
 
 def logits(model: GemmaModel, hidden: torch.Tensor, fns: KernelFns = KERNELS) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""PaliGemma processor, host path (port of ``paligemma_tpu/processing.py``).
+"""PaliGemma processor (port of ``paligemma_tpu/processing.py``).
 
 Registers the ``<image>`` token plus 1024 ``<locXXXX>`` and 128 ``<segXXX>``
 tokens, templates prompts as ``"<image>" * N + BOS + prompt + "\\n"`` and
@@ -6,6 +6,16 @@ preprocesses images with PIL (bicubic resize -> x/255 -> (x-0.5)/0.5 ->
 CHW). Returns numpy arrays; the caller moves them to its device.
 ``ByteTokenizer`` is a dependency-free stand-in for the Gemma tokenizer; any
 HF ``AutoTokenizer`` satisfies the same protocol.
+
+The on-device half of the serving path: ``raw_uint8=True`` stops after the
+PIL resize (uint8 CHW, one byte a pixel to upload), and the rescale and
+normalize run on the device as a per-channel gather through ``pixel_lut``
+(``apply_pixel_lut``, equal to the host pipeline by construction) or as
+the subtract-then-scale affine (``apply_pixel_affine``), which a consumer
+takes only after checking it against the gather on its own device.
+``preprocess`` is the counterpart of the reference's ``preprocess_jit``:
+the whole pipeline on tensors, with ``jax.image.resize``'s antialiased
+Keys bicubic.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ import dataclasses
 from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
+import torch
 from PIL import Image
 
 IMAGENET_STANDARD_MEAN = [0.5, 0.5, 0.5]
@@ -57,6 +68,99 @@ def process_images(
         arr = normalize(rescale(arr, scale=rescale_factor), mean=image_mean, std=image_std)
         out.append(arr.transpose(2, 0, 1))
     return out
+
+
+def process_images_uint8(images: Sequence, size: Tuple[int, int],
+                         resample=Image.Resampling.BICUBIC) -> List[np.ndarray]:
+    """The resize half of ``process_images``: PIL resize -> uint8 CHW. The
+    rescale and normalize follow on the device (``apply_pixel_lut``)."""
+    return [np.asarray(resize(image, size=size, resample=resample), dtype=np.uint8).transpose(2, 0, 1)
+            for image in images]
+
+
+def pixel_lut(rescale_factor: float = 1 / 255.0, image_mean=IMAGENET_STANDARD_MEAN,
+              image_std=IMAGENET_STANDARD_STD) -> np.ndarray:
+    """(3, 256) fp32 table: ``lut[c, v]`` is the host pipeline's output for
+    byte ``v`` in channel ``c``, computed by ``rescale`` and ``normalize``
+    themselves on a byte ramp, so a gather through it equals
+    ``process_images`` bit for bit."""
+    ramp = np.broadcast_to(np.arange(256, dtype=np.uint8)[None, :, None], (1, 256, 3))
+    arr = normalize(rescale(ramp, scale=rescale_factor), mean=image_mean, std=image_std)
+    return np.ascontiguousarray(arr[0].transpose(1, 0))
+
+
+def apply_pixel_lut(lut: torch.Tensor, pix_u8: torch.Tensor) -> torch.Tensor:
+    """(B, 3, H, W) uint8 -> (B, 3, H, W) in ``lut.dtype``, a per-channel
+    gather; ``lut`` is ``pixel_lut()`` cast to the consumer's dtype (a
+    gather of a cast table is the cast of the gathered values)."""
+    idx = pix_u8.long()
+    return torch.stack([lut[c][idx[:, c]] for c in range(3)], dim=1)
+
+
+def pixel_affine_coeffs(rescale_factor: float = 1 / 255.0, image_mean=IMAGENET_STANDARD_MEAN,
+                        image_std=IMAGENET_STANDARD_STD) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-channel fp32 ``(center, mul)`` with ``(u - center) * mul`` the
+    rescale/normalize affine: center = mean / rescale (127.5, exact in
+    fp32), mul = rescale / std. Subtracting first leaves one fp32 rounding;
+    ``u * mul + add`` would cancel at the mean pixel and can flip a bf16
+    rounding. Still a candidate: a consumer checks it against
+    ``apply_pixel_lut`` over the 0..255 ramp on its own device, in its own
+    dtype, and keeps the gather on any mismatch."""
+    mean = np.asarray(image_mean, np.float64)
+    std = np.asarray(image_std, np.float64)
+    center = (mean / np.float64(rescale_factor)).astype(np.float32)
+    mul = (np.float64(rescale_factor) / std).astype(np.float32)
+    return center, mul
+
+
+def apply_pixel_affine(center: torch.Tensor, mul: torch.Tensor, pix_u8: torch.Tensor,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """(B, 3, H, W) uint8 -> (B, 3, H, W) ``out_dtype``: ``(u - center) * mul``
+    in fp32, with fp32 (3,) ``center`` and ``mul`` on the pixels' device."""
+    x = pix_u8.float()
+    return ((x - center[None, :, None, None]) * mul[None, :, None, None]).to(out_dtype)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """The Keys cubic kernel with a = -0.5 on |distance| ``x``, as
+    ``jax.image.resize(method="bicubic")`` computes it."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """(in_size, out_size) fp32 weights of one axis of ``jax.image.resize``'s
+    antialiased bicubic (``compute_weight_mat`` with translation 0): the
+    kernel widened by 1 / scale when downsampling, each output's weights
+    normalized to sum 1, zero where the sample lies outside the input."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32, device=device)[:, None]).abs()
+    w = _keys_cubic(x / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def preprocess(raw_images: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """On-device preprocessing (the reference's ``preprocess_jit``): (B, H0,
+    W0, 3) uint8 -> (B, 3, height, width) fp32: antialiased Keys bicubic
+    resize (an axis of unchanged size is left as it is), x / 255, then
+    (x - mean) / std. Bicubic differs from PIL's by design; the host
+    ``process_images`` is the reference's exact path."""
+    x = raw_images.float()
+    if x.shape[1] != height:
+        x = torch.einsum("bhwc,hy->bywc", x, _resize_weights(x.shape[1], height, x.device))
+    if x.shape[2] != width:
+        x = torch.einsum("bywc,wx->byxc", x, _resize_weights(x.shape[2], width, x.device))
+    x = x / 255.0
+    mean = torch.tensor(IMAGENET_STANDARD_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(IMAGENET_STANDARD_STD, dtype=torch.float32, device=x.device)
+    return ((x - mean) / std).permute(0, 3, 1, 2)
 
 
 class ByteTokenizer:
@@ -227,11 +331,15 @@ class PaliGemmaProcessor:
         self.tokenizer = tokenizer
 
     def __call__(self, text: List[str], images: List, padding: str = "longest",
-                 truncation: bool = True) -> dict:
+                 truncation: bool = True, raw_uint8: bool = False) -> dict:
+        """``raw_uint8``: pixel values as resized uint8 CHW, for the caller
+        to finish on its device with ``apply_pixel_lut`` (equal to the
+        default path's fp32 values)."""
         if len(images) != len(text):
             raise ValueError(f"Received {len(images)} images for {len(text)} prompts.")
+        size = (self.image_size, self.image_size)
         pixel_values = np.stack(
-            process_images(images, size=(self.image_size, self.image_size)), axis=0
+            process_images_uint8(images, size) if raw_uint8 else process_images(images, size=size), axis=0
         )
         input_strings = [
             add_image_tokens_to_prompt(

@@ -797,3 +797,119 @@ def test_spec_graph_gives_the_eager_iterations_and_launch_counts(cuda, kv_int8, 
     got = generation.generate_spec(model, ids, pix, 16, -1, cache_dtype=cache_dtype, chunk=8, k=k,
                                    drafter=drafter)
     assert len(got) == 16 and got[0] == int(first)
+
+
+# ---------------------------------------------------------------------------
+# Continuous serving (paligemma_tpu_torch/continuous.py)
+# ---------------------------------------------------------------------------
+
+
+def _top_two_gap(model, ids, pix, prefix, cache_dtype=None):
+    """(top-1 minus top-2 logit, 2% of the largest |logit|) of batch 1's
+    eager step that chooses the token after ``prefix``."""
+    cache = generation.make_cache(model, 1, ids.shape[1], len(prefix) + 1, cache_dtype)
+    lg, cache = paligemma.prefill(model, ids, pix, cache, full_logits=False)
+    for t in prefix:
+        lg, cache = paligemma.decode_step(model, torch.tensor([[t]], dtype=torch.int32, device=ids.device), cache)
+    last = lg[0, -1].float()
+    top = last.topk(2).values
+    return float(top[0] - top[1]), 0.02 * float(last.abs().max())
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_slot_step_graph_is_the_eager_step_bit_for_bit(cuda, kv_int8, spec):
+    """A chunk of replays of the captured slot step (plain, or the per-row
+    verify) against the same step issued launch by launch from the same
+    engine state: every buffer and the whole slot cache equal bit for bit;
+    each replay adds one step's launches."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    layers = model.cfg.text_config.num_hidden_layers
+    eng = ContinuousBatcher(model, proc, n_slots=3, max_new_tokens=24, chunk=4, kv_quant=kv_int8,
+                            spec_k=spec, prefetch=False)
+    for p, im in zip(prompts[:3], images[:3]):
+        eng.submit(p, im)
+    eng.step()  # the join and a first chunk: rows at ragged lengths
+    runner = eng._step_runner(spec, False)
+    c = eng.full_cache
+    tensors = eng.state.tensors() + [getattr(c, f) for f in ("k", "v", "k_scale", "v_scale") if hasattr(c, f)]
+    saved = [x.clone() for x in tensors]
+    n = 3
+
+    def reset():
+        for dst, src in zip(tensors, saved):
+            dst.copy_(src)
+        eng.state.step.zero_()
+        eng.state.counts.zero_()
+
+    reset()
+    before = kernels.launch_counts()
+    runner.run(n, (None, None))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] - before["decode_attention"] == n * layers
+    graph_out = [x.clone() for x in tensors]
+    reset()
+    for _ in range(n):
+        runner.step((None, None))
+    torch.cuda.synchronize()
+    for got, want in zip(graph_out, tensors):
+        assert torch.equal(got, want)
+    eng.close()
+
+
+def test_free_slot_past_the_window_faults_nothing_on_the_card(cuda):
+    """A free slot whose stale length passed a shrunk window keeps stepping
+    (its writes clamped to its own rows): no device fault, and the tokens of
+    the window engine are the full-cache engine's."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    model, proc, images, prompts = _tiny_served(cuda)
+
+    def run(**kw):
+        eng = ContinuousBatcher(model, proc, n_slots=2, max_new_tokens=160, chunk=4, prefetch=False, **kw)
+        long_r = eng.submit(prompts[0], images[0], max_new_tokens=140)
+        short = eng.submit(prompts[1], images[1], max_new_tokens=6)
+        while not long_r.done:
+            eng.step()
+        late = eng.submit(prompts[2], images[2], max_new_tokens=30)
+        past = False
+        while eng.step():
+            past |= int(eng.state.lengths[1]) > eng.window
+        torch.cuda.synchronize()
+        eng.close()
+        assert all(r.error is None for r in (long_r, short, late))
+        return [r.tokens for r in (long_r, short, late)], eng, past
+
+    base, _, _ = run()
+    win, eng, past = run(kv_window=True)
+    assert past and eng.window_resizes >= 2
+    assert win == base
+
+
+@pytest.mark.parametrize("kw", [{}, {"spec_k": 4, "kv_window": True}], ids=["plain", "spec_window"])
+def test_tiny_engine_gives_batch1_tokens(cuda, kw):
+    """Each request's tokens are batch-1 ``generate``'s, up to a first
+    difference where batch 1's top two logits lie within 2% (a bf16 GEMM of
+    the slots' rows can round a near tie apart from a one-row GEMM)."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    eng = ContinuousBatcher(model, proc, n_slots=2, max_new_tokens=20, chunk=4, **kw)
+    reqs = [eng.submit(p, im, max_new_tokens=m) for p, im, m in zip(prompts, images, [12, 20, 7, 12])]
+    eng.run()
+    eng.close()
+    assert reqs[0].tokens == reqs[3].tokens  # the repeated request
+    for r, p, im in zip(reqs, prompts, images):
+        assert r.error is None
+        out = proc(text=[p], images=[im])
+        ids = torch.from_numpy(out["input_ids"]).to(cuda)
+        pix = torch.from_numpy(out["pixel_values"]).to(cuda, torch.bfloat16)
+        ref, _ = generation.generate(model, ids, pix, r.max_new_tokens, proc.tokenizer.eos_token_id)
+        div = next((i for i, (a, b) in enumerate(zip(r.tokens, ref)) if a != b), None)
+        if div is None:
+            assert r.tokens == ref
+        else:
+            gap, bar = _top_two_gap(model, ids, pix, ref[:div])
+            assert gap <= bar, (div, gap, bar)
