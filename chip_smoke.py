@@ -161,6 +161,31 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     model on localhost (continuous, 4 slots, chunk 8): four concurrent
     /generate requests and one /generate_stream give the tokens an engine
     of the same settings gives in-process, and /metrics answers.
+15. LoRA training (after phase 14; ``phase_lora_train``): on the seeded
+    bf16 model, r 8, alpha 16, dropout 0.1, one batch of B = 2 rows at T =
+    320 (256 image tokens + 64 text, the second right-padded to 300,
+    labels as ``data.py`` builds them). Gated: the flash Function's forward
+    at that shape bit for bit the no-grad kernel and its dq, dk, dv
+    those of autograd of the plain version; the lm_head's d hidden against
+    autograd of the widened fp32 product; one step's adapter gradients
+    through the kernels against the plain versions (B seeded non-zero);
+    then 8 micro-steps with accumulation 2: the loss finite and falling,
+    45 flash launches a micro-step and no other kernel. Reported: each
+    micro-step's host and device-event ms, the optimizer step's, peak MiB,
+    the flash forward / backward / plain / SDPA forward + backward ms
+    beside the bounds; the adapter saved with ``save_checkpoint_robust``
+    and read back bit for bit.
+16. LoRA serving (``phase_lora_serving``; the final norm redrawn as in
+    phase 7): a lora_rank 8 engine (4 slots, chunk 8) in bf16 and int8
+    serves a base request, the trained adapter, a seeded rank-4 adapter
+    (padded) and a base request: base requests give the base engine's
+    tokens exactly, adapted ones differ from base, no capture after
+    ``prepare``; in bf16 each adapted request against ``merge_lora``'s
+    batch-1 ``generate`` and alone in a 1-slot engine (phase 10's
+    near-tie rule), and the slot step and verify ms at 4 rows with and
+    without ``lora_rank``. Then ``server_torch.build_server`` with
+    ``--continuous --adapter trained=DIR`` lists it in /healthz and answers
+    a request naming it with the in-process engine's tokens.
 
 Phase 3 also holds batched serving's decode (batch 4, per-row valid, the
 window's end read on the device: bit for bit the host end's, also from a
@@ -186,6 +211,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -2719,25 +2745,31 @@ def _throughput_arm(torch, name, model, proc, cfg, main_counts):
     return out
 
 
-def _slot_step_ms(torch, model, proc, cfg, traffic):
+def _slot_step_ms(torch, model, proc, cfg, traffic, settings=THROUGHPUT, lora_rank=None, adapters=()):
     """Device ms of one plain slot step and one k = 8 verify with the
-    throughput cell's 32 slots occupied (just joined):
-    each flavour's graph (captured untimed) replayed 16 times from the same
-    saved state between CUDA events, best of 3."""
+    engine's slots occupied (just joined; by default the throughput cell's
+    32): each flavour's graph (captured untimed) replayed 16 times from the
+    same saved state between CUDA events, best of 3. With ``adapters``
+    ((name, adapter, scale), ...) the slots take them in turn with base
+    requests between."""
     from paligemma_tpu_torch.continuous import ContinuousBatcher
 
     eng = ContinuousBatcher(model, proc, prompt_budget=cfg.vision_config.num_image_tokens + THROUGHPUT_EXTRA,
-                            seed=SEED, prefetch=False, **THROUGHPUT)
-    for p, im, m in traffic[: eng.n_slots]:
-        eng.submit(p, im, m)
+                            seed=SEED, prefetch=False, lora_rank=lora_rank, **settings)
+    names = [None]
+    for name, tree, scale in adapters:
+        eng.register_adapter(name, tree, scale)
+        names.append(name)
+    for i, (p, im, m) in enumerate(traffic[: eng.n_slots]):
+        eng.submit(p, im, m, adapter=names[i % len(names)])
     eng._fill_slots()  # one group joins: every slot at its prompt's length
     c = eng.full_cache
     tensors = eng.state.tensors() + [c.k, c.v]
     saved = [x.clone() for x in tensors]
     top = int(max(eng.host_lengths))
     out, reps = {}, 16
-    for name, k, advance in (("plain", 0, THROUGHPUT["chunk"]), ("verify", 8, reps * 8 + 8)):
-        width = next(b for b in _throughput_windows() if b >= top + advance + 1)
+    for name, k, advance in (("plain", 0, settings["chunk"]), ("verify", 8, reps * 8 + 8)):
+        width = next(b for b in eng.window_buckets if b >= top + advance + 1)
         eng.window, eng.cache = width, eng._view(width)
         runner = eng._step_runner(k, False)
         times = []
@@ -2891,6 +2923,419 @@ def _image_from_blob(blob):
     return Image.open(io.BytesIO(base64.b64decode(blob))).convert("RGB")
 
 
+# ---------------------------------------------------------------------------
+# LoRA: training (phase 15) and serving (phase 16)
+# ---------------------------------------------------------------------------
+
+LORA_R, LORA_ALPHA, LORA_DROPOUT = 8, 16, 0.1
+LORA_STEPS, LORA_ACCUM, LORA_LR = 8, 2, 1e-3
+# The training batch: T = 320 (256 image tokens + 64 text), the second row
+# right-padded to 300.
+LORA_VALID = (320, 300)
+# Bars, stated before the first run (PERF.md, PR 15), and why:
+# - The adapter gradients of one step through the kernels against the plain
+#   versions: the two differ only in the flash forward (a bf16 rounding of
+#   some outputs apart in each of 45 calls), which moves the bf16 residual
+#   stream by well under 1%: cosine >= 0.999 and a norm within 1%.
+LORA_GRAD_COS, LORA_GRAD_GAP = 0.999, 0.01
+# - The flash Function's dq, dk, dv against autograd of the plain version:
+#   the same computation run twice, so within 1e-5 of the largest element.
+FLASH_GRAD_RTOL = 1e-5
+# - d hidden of the fp32 lm_head against autograd of the widened product:
+#   d logits rounded to bf16 (2^-9 relative) summed over 257152 rows in
+#   fp32, so cosine >= 0.9999 and within 2^-6 of the largest element.
+LOGITS_GRAD_COS, LOGITS_GRAD_MAX = 0.9999, 2.0**-6
+# - Phase 16: tokens as phase 10's rule (LOGIT_REL_TOL).
+LORA_SERVE_NEW = 24
+
+
+def _cos_gap(torch, got, ref):
+    got, ref = got.double().flatten(), ref.double().flatten()
+    return float(got @ ref / (got.norm() * ref.norm())), abs(float(got.norm() / ref.norm()) - 1.0)
+
+
+def _lora_batch(torch, proc, cfg):
+    """Two rows built as ``data.py`` builds a sample (the template, padding
+    with the pad id to T, labels on the text positions), valid LORA_VALID."""
+    import numpy as np
+
+    n_img, t = cfg.vision_config.num_image_tokens, LORA_VALID[0]
+    text = "what is the total revenue, the operating margin and the net income reported on this page? "
+    pad = getattr(proc.tokenizer, "pad_token_id", 0) or 0
+    ids = np.full((2, t), pad, np.int32)
+    labels = np.full((2, t), cfg.ignore_index, np.int32)
+    pix = []
+    for i, valid in enumerate(LORA_VALID):
+        out = proc([text[: valid - n_img - 2]], [_request_image(i)])
+        row = np.asarray(out["input_ids"][0], np.int32)
+        check(len(row) == valid, f"[lora train] row {i} templated to {len(row)} tokens, not {valid}")
+        ids[i, :valid] = row
+        labels[i, n_img:valid] = row[n_img:]
+        pix.append(out["pixel_values"][0])
+    return {"input_ids": ids, "pixel_values": np.stack(pix).astype(np.float32), "labels": labels,
+            "valid_len": np.asarray(LORA_VALID, np.int32)}
+
+
+def _device_ms(torch, fn, iters=10, skip=()):
+    """(device ms, host ms) per call of ``fn``: the CUDA kernels' time under
+    torch.profiler (kernels whose name holds one of ``skip`` left out) and
+    the host clock to a synchronize, averaged over ``iters`` calls after
+    two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / iters
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and not any(k in e.key for k in skip))
+    return us / 1e3 / iters, host
+
+
+def _flash_training(torch):
+    """The flash Function at the Gemma training shape (2 x 320, H 8, Hkv 1,
+    D 256, valid 320 and 300): the forward bit for bit the no-grad kernel;
+    dq, dk, dv against autograd of the plain version; forward, backward,
+    plain and SDPA forward + backward times beside the bounds."""
+    import torch.nn.functional as F
+
+    from paligemma_tpu_torch.ops import cuda_attention as ca
+
+    dev = torch.device("cuda")
+    b, t, h, hkv, d = 2, LORA_VALID[0], 8, 1, 256
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    q, k, v = (_rand(torch, gen, (b, t, n, d), dev).requires_grad_() for n in (h, hkv, hkv))
+    valid = torch.tensor(LORA_VALID, dtype=torch.int32, device=dev)
+    w = _rand(torch, gen, (b, t, h, d), dev)
+    out = ca.flash_attention(q, k, v, valid)
+    with torch.no_grad():
+        same = torch.equal(out, ca.flash_attention(q, k, v, valid))
+    check(out.grad_fn is not None and same, "[lora flash] the Function's forward is not the kernel's bits")
+    grads = torch.autograd.grad(out, (q, k, v), w)
+    ref = torch.autograd.grad(ca.flash_attention_plain(q, k, v, valid), (q, k, v), w)
+    errs = []
+    for name, g, r in zip("qkv", grads, ref):
+        err = float((g.float() - r.float()).abs().max())
+        errs.append(err)
+        check(err <= FLASH_GRAD_RTOL * float(r.float().abs().max()),
+              f"[lora flash] d{name} is {err:.3e} off autograd of the plain version")
+
+    def fwd():
+        with torch.no_grad():
+            ca.flash_attention(q, k, v, valid)
+
+    def fwd_bwd(fn):
+        def run():
+            torch.autograd.grad(fn(q, k, v, valid), (q, k, v), w)
+        return run
+
+    mask = (torch.arange(t, device=dev)[None, :] < valid[:, None])[:, None, None, :]  # (B, 1, 1, S)
+
+    def sdpa(q, k, v, valid):
+        o = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                           attn_mask=mask, enable_gqa=True)
+        return o.transpose(1, 2)
+
+    fwd_ms = _time_ms(torch, lambda i: fwd())
+    bwd_ms, bwd_host = _device_ms(torch, fwd_bwd(ca.flash_attention), skip=("flash_attention_kernel",))
+    plain_ms, _ = _device_ms(torch, fwd_bwd(ca.flash_attention_plain))
+    sdpa_ms, _ = _device_ms(torch, fwd_bwd(sdpa))
+    nbytes, ops = _attention_cost(b, t, t, h, hkv, d)
+    bound_f, by_f = _bound(nbytes, ops, "bf16")
+    # The backward reads q, k, v, out's gradient and writes dq, dk, dv; it
+    # takes five products of the forward's size where the forward takes two.
+    bound_b, by_b = _bound(2 * nbytes, 2.5 * ops, "bf16")
+    rec = {"shape": f"train B={b} T=S={t} H={h} Hkv={hkv} D={d} valid {list(LORA_VALID)}",
+           "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "bwd_host_ms": bwd_host, "fwd_bound_ms": bound_f,
+           "fwd_bound_by": by_f, "bwd_bound_ms": bound_b, "bwd_bound_by": by_b,
+           "plain_fwd_bwd_ms": plain_ms, "sdpa_fwd_bwd_ms": sdpa_ms, "grad_max_abs_err": max(errs),
+           "launches_per_micro_step": None}
+    log(f"[lora flash] {rec['shape']}: Function forward bit for bit the kernel: {same} | dq dk dv max abs err "
+        f"{errs} vs autograd of the plain version | device ms: forward (kernel) {fwd_ms:.4f} (bound "
+        f"{bound_f:.4g}, {by_f}), backward {bwd_ms:.4f} (bound {bound_b:.4g}, {by_b}; host {bwd_host:.4f}), "
+        f"plain forward + backward {plain_ms:.4f}, SDPA forward + backward {sdpa_ms:.4f}")
+    return rec
+
+
+def _logits_grad(torch, model):
+    """d hidden of ``gemma.logits`` at the training shape against autograd
+    of the widened fp32 product."""
+    from paligemma_tpu_torch.models import gemma
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    h = _rand(torch, gen, (2, LORA_VALID[0], model.cfg.text_config.hidden_size), dev).requires_grad_()
+    emb = model.llm.embed
+    g = torch.randn((2, LORA_VALID[0], emb.shape[0]), generator=gen, device=dev)
+    (dh,) = torch.autograd.grad(gemma.logits(model.llm, h), h, g)
+    (ref,) = torch.autograd.grad(h.float() @ emb.float().t(), h, g)
+    cos, gap = _cos_gap(torch, dh, ref)
+    err = float((dh.float() - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    log(f"[lora logits] d hidden of the fp32 lm_head (2 x {LORA_VALID[0]} x {emb.shape[0]}) against autograd of "
+        f"the widened product: cosine {cos:.7f}, norm gap {gap:.2e}, max abs err {err:.3e} ({rel:.2e} of the "
+        f"largest)")
+    check(cos >= LOGITS_GRAD_COS and rel <= LOGITS_GRAD_MAX, "[lora logits] the lm_head gradient is off")
+    del g, dh, ref
+    return {"cos": cos, "norm_gap": gap, "max_rel_err": rel}
+
+
+def phase_lora_train(torch, model, proc, cfg, main_counts, out_dir):
+    """LoRA training at full width on the seeded bf16 model (phase 15):
+    gradients through the kernels against the plain versions, the flash
+    Function and the lm_head gradient, then LORA_STEPS micro-steps with
+    accumulation LORA_ACCUM on one batch, the adapter saved and read back."""
+    import copy
+
+    from paligemma_tpu_torch import lora
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.ops import kernels
+    from paligemma_tpu_torch.ops.kernels import PLAIN
+
+    dev = torch.device("cuda")
+    tag = "[lora train]"
+    batch = lora.batch_to(_lora_batch(torch, proc, cfg), dev)
+    lcfg = lora.LoraConfig(r=LORA_R, alpha=LORA_ALPHA, dropout=LORA_DROPOUT)
+    flash = _flash_training(torch)
+    logits_rec = _logits_grad(torch, model)
+
+    # One step's adapter gradients through KERNELS and PLAIN (same masks),
+    # B seeded non-zero: at B = 0 the gradient of A is zero.
+    probe = lora.init_lora(cfg, lcfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    bgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for mod in probe["layers"].values():
+        mod["b"].normal_(0.0, 0.01, generator=bgen)
+
+    def grads(fns):
+        live = lora._map(lambda x: x.detach().requires_grad_(), probe)
+        loss = paligemma.loss_fn(model, batch["input_ids"], batch["pixel_values"], batch["labels"],
+                                 valid_len=batch["valid_len"], lora=live, lora_scale=lcfg.scale,
+                                 lora_dropout=lcfg.dropout,
+                                 lora_generator=torch.Generator(device=dev).manual_seed(SEED + 4), fns=fns)
+        return float(loss), [g.float() for g in torch.autograd.grad(loss, lora.adapter_leaves(live))]
+
+    loss_k, gk = grads(kernels.KERNELS)
+    loss_p, gp = grads(PLAIN)
+    cos, gap = _cos_gap(torch, torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp]))
+    leaf_cos = [round(_cos_gap(torch, a, b)[0], 6) for a, b in zip(gk, gp)]
+    log(f"{tag} one step's adapter gradients (B seeded non-zero), kernels against plain versions: loss "
+        f"{loss_k:.6f} vs {loss_p:.6f}, cosine {cos:.7f} (bar {LORA_GRAD_COS}), norm gap {gap:.2e} (bar "
+        f"{LORA_GRAD_GAP}), per tensor cosines {leaf_cos}")
+    check(cos >= LORA_GRAD_COS and gap <= LORA_GRAD_GAP, f"{tag} the kernel path's gradients are off")
+    del gk, gp, probe
+
+    ad = lora.init_lora(cfg, lcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    opt = lora.default_optimizer(lr=LORA_LR, accum_steps=LORA_ACCUM)
+    state = opt.init(ad)
+    step = lora.make_train_step(lcfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, host_ms, dev_ms = [], [], []
+    for i in range(LORA_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, ad, state = step(model, ad, state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    counts = {k: v for k, v in kernels.call_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    n_layers = cfg.vision_config.num_hidden_layers + cfg.text_config.num_hidden_layers
+    flash["launches_per_micro_step"] = counts.get("flash_attention", 0) / LORA_STEPS
+    main_counts.update(counts)
+    log(f"{tag} {LORA_STEPS} micro-steps, accumulation {LORA_ACCUM}, lr {LORA_LR}, r {LORA_R} alpha {LORA_ALPHA} "
+        f"dropout {LORA_DROPOUT}, B=2 T={LORA_VALID[0]} valid {list(LORA_VALID)}: losses {losses} | launches "
+        f"{counts} ({n_layers} flash a micro-step expected) | micro-step host ms {[round(x, 2) for x in host_ms]} "
+        f"| device-event ms {[round(x, 2) for x in dev_ms]} | peak {peak:.1f} MiB")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"{tag} the loss did not fall")
+    check(counts == {"flash_attention": LORA_STEPS * n_layers}, f"{tag} launches {counts} are not the code's")
+
+    # The optimizer step alone (the k-th call), on copies.
+    g = [torch.randn_like(p) for p in lora.adapter_leaves(ad)]
+    ad2, st2 = lora._map(lambda x: x.clone(), ad), copy.deepcopy(state)
+    opt_ms = []
+    for _ in range(5):
+        st2["mini_step"] = LORA_ACCUM - 1
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        st2 = opt.update(g, st2, ad2)
+        end.record()
+        torch.cuda.synchronize()
+        opt_ms.append(((time.perf_counter() - t0) * 1e3, start.elapsed_time(end)))
+    log(f"{tag} optimizer step (clip + AdamW over {sum(p.numel() for p in g)} values) host / device-event ms "
+        f"{[(round(a, 3), round(b, 3)) for a, b in opt_ms]}")
+
+    t0 = time.perf_counter()
+    fmt = lora.save_checkpoint_robust(ad, lcfg, out_dir, LORA_STEPS, {"final": True})
+    back = lora.load_adapter(out_dir, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(lora.adapter_leaves(ad), lora.adapter_leaves(back)))
+    log(f"{tag} save_checkpoint_robust -> {fmt} in {out_dir}, read back bit for bit: {same} "
+        f"({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    check(fmt == "safetensors" and same, f"{tag} the saved adapter does not read back")
+    steady = host_ms[LORA_ACCUM:]
+    return ad, lcfg, {"losses": losses, "launches": counts, "host_ms": host_ms, "device_event_ms": dev_ms,
+                      "steady_host_ms": sum(steady) / len(steady), "optimizer_ms": opt_ms, "peak_mib": peak,
+                      "grad_cos": cos, "grad_norm_gap": gap, "flash": flash, "logits": logits_rec}
+
+
+def phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts):
+    """Multi-tenant LoRA serving on the 3B model, the final norm redrawn as
+    in phase 7 (phase 16)."""
+    with _tokens_that_change(torch, model):
+        return _phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts)
+
+
+def _lora_engine_run(torch, model, proc, cfg, traffic, names, lora_rank, adapters, n_slots=CONT_SLOTS):
+    """Tokens and launches of ``traffic`` (with adapter ``names``) through one
+    engine; every graph captured by ``prepare`` (none in the run)."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+    from paligemma_tpu_torch.ops import kernels
+
+    eng = ContinuousBatcher(model, proc, n_slots=n_slots, chunk=CONT_CHUNK, max_new_tokens=CONT_MAX_NEW,
+                            prompt_budget=[cfg.vision_config.num_image_tokens + e for e in CONT_EXTRA_BUCKETS],
+                            seed=SEED, lora_rank=lora_rank)
+    for name, tree, scale in adapters if lora_rank else ():
+        eng.register_adapter(name, tree, scale)
+    eng.prepare()
+    n_graphs = len(eng.graph_log)
+    kernels.reset_launch_counts()
+    reqs = [eng.submit(p, im, m, adapter=a) for (p, im, m), a in zip(traffic, names)]
+    eng.run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    eng.close()
+    check(all(r.done and r.error is None for r in reqs), f"a request ended with an error: "
+          f"{[repr(r.error) for r in reqs if r.error is not None]}")
+    check(len(eng.graph_log) == n_graphs, "a graph was captured inside the run, after prepare")
+    return [r.tokens for r in reqs], counts
+
+
+def _phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts):
+    from paligemma_tpu_torch import generation, lora, quantization
+
+    dev = torch.device("cuda")
+    second_cfg = lora.LoraConfig(r=4, alpha=8, dropout=0.0)
+    second = lora.init_lora(cfg, second_cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+    bgen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for mod in second["layers"].values():
+        mod["b"].normal_(0.0, 0.02, generator=bgen)
+    adapters = [("trained", trained, lcfg.scale), ("second", second, second_cfg.scale)]
+    traffic = [(p, im, LORA_SERVE_NEW) for p, im, _ in _cont_traffic()[:CONT_SLOTS]]
+    names = [None, "trained", "second", None]
+    record = {}
+    int8 = quantization.quantize_params(model, llm_only=True, mode="int8")
+    for arm, m in (("bf16", model), ("int8", int8)):
+        tag = f"[lora serving {arm}]"
+        t0 = time.perf_counter()
+        got, counts = _lora_engine_run(torch, m, proc, cfg, traffic, names, LORA_R, adapters)
+        wall = time.perf_counter() - t0
+        main_counts.update(counts)
+        base, _ = _lora_engine_run(torch, m, proc, cfg, traffic, [None] * len(traffic), None, ())
+        same_base = [got[i] == base[i] for i, n in enumerate(names) if n is None]
+        differs = [got[i] != base[i] for i, n in enumerate(names) if n is not None]
+        log(f"{tag} lora_rank {LORA_R}, {CONT_SLOTS} slots, chunk {CONT_CHUNK}: requests {names} | base requests "
+            f"equal to the base engine's: {same_base} | adapted requests differ from base: {differs} | launches "
+            f"{counts} | {wall:.2f} s (captures included)")
+        check(all(same_base), f"{tag} a base request is not the base engine's")
+        check(all(differs), f"{tag} an adapter did not change its request's tokens")
+        rec = {"same_base": same_base, "adapted_differ": differs, "launches": counts, "wall_s": wall}
+        if arm == "bf16":
+            iso, held = [], []
+            for i, name in enumerate(names):
+                if name is None:
+                    continue
+                alone, _ = _lora_engine_run(torch, m, proc, cfg, traffic[i:i + 1], [name], LORA_R, adapters,
+                                            n_slots=1)
+                tree, acfg = {"trained": (trained, lcfg), "second": (second, second_cfg)}[name]
+                merged = lora.merge_lora(m, tree, acfg)
+                p, im, n = traffic[i]
+                ref, _ = generation.generate(merged, *_inputs_of(torch, merged, proc, p, im), n,
+                                             proc.tokenizer.eos_token_id)
+                held.append(_held_to_batch1(torch, merged, proc, f"{tag} {name} vs merge_lora batch 1", p, im,
+                                            got[i], ref, None))
+                iso.append(_held_to_batch1(torch, merged, proc, f"{tag} {name} alone in a 1-slot engine", p, im,
+                                           got[i], alone[0], None))
+                del merged
+            log(f"{tag} adapted requests against merge_lora's batch-1 generate: first differences {held} | alone "
+                f"in a 1-slot engine against beside the others: first differences {iso}")
+            rec.update(first_difference_vs_merged=held, first_difference_alone=iso)
+            no_lora = _slot_step_ms(torch, m, proc, cfg, _throughput_traffic(CONT_SLOTS),
+                                    dict(THROUGHPUT, n_slots=CONT_SLOTS))
+            with_lora = _slot_step_ms(torch, m, proc, cfg, _throughput_traffic(CONT_SLOTS),
+                                      dict(THROUGHPUT, n_slots=CONT_SLOTS), LORA_R, adapters)
+            log(f"{tag} {CONT_SLOTS} occupied slots, CUDA events over replays: plain slot step "
+                f"{no_lora['plain']:.4f} ms without lora_rank, {with_lora['plain']:.4f} ms with lora_rank {LORA_R} | "
+                f"k = 8 verify {no_lora['verify']:.4f} ms without, {with_lora['verify']:.4f} ms with")
+            rec.update(slot_step_ms={"no_lora": no_lora, "lora": with_lora})
+        record[arm] = rec
+    del int8
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["http"] = _lora_http(torch, model, proc, cfg, trained, lcfg, adapter_dir)
+    return record
+
+
+def _lora_http(torch, model, proc, cfg, trained, lcfg, adapter_dir):
+    """``server_torch.build_server`` with ``--continuous --adapter
+    trained=DIR`` (the saved adapter): /healthz lists it, and a request that
+    names it answers with the tokens an in-process engine of the same
+    settings gives it."""
+    import base64
+    import io
+    import socket
+    import threading
+    import urllib.request
+
+    import server_torch
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    with socket.socket() as sck:
+        sck.bind(("127.0.0.1", 0))
+        port = sck.getsockname()[1]
+    args = server_torch.parser().parse_args(
+        ["--continuous", "--n_slots", "4", "--chunk", "8", "--max_new_cap", "32", "--spec_k", "0",
+         "--kv_window", "off", "--adapter", f"trained={adapter_dir}", "--port", str(port)])
+    server, _, _ = server_torch.build_server(model, proc, args, "paligemma_3b_pt_224 seeded bf16")
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{port}"
+    prompt, image, _ = _cont_traffic()[1]
+    buf = io.BytesIO()
+    image.save(buf, "PNG")
+    blob = base64.b64encode(buf.getvalue()).decode()
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        req = urllib.request.Request(base + "/generate", data=json.dumps(
+            {"prompt": prompt, "image_b64": blob, "max_tokens": LORA_SERVE_NEW, "adapter": "trained"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())["tokens"]
+    finally:
+        server.shutdown()
+        server.server_close()
+    eng = ContinuousBatcher(model, proc, n_slots=4, chunk=8, max_new_tokens=32,
+                            prompt_budget=[cfg.vision_config.num_image_tokens + 64], lora_rank=LORA_R)
+    eng.register_adapter("trained", trained, lcfg.scale)
+    ref = eng.submit(prompt, _image_from_blob(blob), LORA_SERVE_NEW, adapter="trained")
+    eng.run()
+    eng.close()
+    log(f"[lora http] build_server --continuous --adapter trained=DIR: /healthz adapters {health.get('adapters')} | "
+        f"a request naming it gave the in-process engine's tokens: {got == ref.tokens}")
+    check(health.get("adapters") == ["trained"], "[lora http] /healthz does not list the adapter")
+    check(got == ref.tokens, "[lora http] the server's adapter tokens are not the in-process engine's")
+    return {"adapters": health.get("adapters"), "same_as_in_process": got == ref.tokens}
+
+
 KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
@@ -2935,6 +3380,11 @@ def main() -> int:
     log(f"[ablation] {json.dumps(phase_ablation(torch, model, proc, main_counts))}")
     phase_cli(torch)
     log(f"[continuous] {json.dumps(phase_continuous(torch, model, proc, tok, cfg, main_counts), default=str)}")
+    with tempfile.TemporaryDirectory(prefix="pg_lora_") as adapter_dir:
+        trained, lcfg, train_rec = phase_lora_train(torch, model, proc, cfg, main_counts, adapter_dir)
+        log(f"[lora train] {json.dumps(train_rec)}")
+        serve_rec = phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts)
+        log(f"[lora serving] {json.dumps(serve_rec, default=str)}")
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
     kernels = []
@@ -2942,6 +3392,7 @@ def main() -> int:
         check(main_counts[kname] > 0, f"{kname} was never launched on the main path")
         kernels.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": main_counts[kname], "max_abs_err": max_err[kname], **times[kname]})
+    kernels[0]["training"] = train_rec["flash"]  # flash at the LoRA training shape, with its backward
     kernels[-1]["mlp_w4a8"]["max_abs_err"] = max_err["mlp_w4a8"]
     kernels[-1]["quant_rows"]["max_abs_err"] = max_err["quant_rows"]  # in quantization steps
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -40,6 +40,15 @@ and the verify's ``out`` / history writes clamp their start as
 that takes a group's pad rows) ever write there, and nothing reads those
 rows before a join rewrites them.
 
+Multi-tenant LoRA (``lora_rank``): every slot carries its own q/k/v
+adapters, rows of per-slot tensors ``(L, n_slots + 1, D, r)`` allocated
+once (``_SlotState.lora``) and written in place by each join (a base
+request, a pad row and the trash row take the all-zeros adapter, an exact
+no-op). The captured graphs read those tensors; the join group's adapters
+reach the captured join prefill through static buffers of its runner.
+Registered adapters have their scale folded into b and are zero-padded to
+the engine's rank.
+
 Captures run in ``thread_local`` mode and under the engine's device lock,
 which the prefetch worker's staged uploads also take. Staged uploads go
 through pinned host memory on a side stream with an event that the
@@ -61,7 +70,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from paligemma_tpu_torch import generation, processing, quantization, serving
+from paligemma_tpu_torch import generation, lora, processing, quantization, serving
 from paligemma_tpu_torch.models import gemma
 from paligemma_tpu_torch.models.gemma import KVCache
 from paligemma_tpu_torch.models.paligemma import PaliGemma
@@ -89,6 +98,9 @@ class _SlotState:
     ids_buf: Optional[torch.Tensor] = None  # (B, L) int32 prompt + emitted ids
     buf_lens: Optional[torch.Tensor] = None  # (B,) int32
     noise: Optional[torch.Tensor] = None  # () fp32, the draft-noise probability
+    # Per-slot adapters {"q"|"k"|"v": {"a": (L, B, D, r), "b": (L, B, r, out)}}
+    # fp32, scale folded into b; written in place by joins, never by a step.
+    lora: Optional[dict] = None
 
     def tensors(self) -> List[torch.Tensor]:
         return [getattr(self, f.name) for f in dataclasses.fields(self)
@@ -107,7 +119,7 @@ def _slot_decode_step(model: PaliGemma, cache: KVCache, st: _SlotState, fns: Ker
     history (an adaptive engine's plain chunk), clamped to the buffer."""
     lens = st.lengths
     embeds = gemma.embed_tokens(model.llm, st.token)
-    hidden, _ = gemma.forward(model.llm, embeds, lens[:, None], cache, fns, row_lengths=lens)
+    hidden, _ = gemma.forward(model.llm, embeds, lens[:, None], cache, fns, row_lengths=lens, lora=st.lora)
     logits = gemma.logits(model.llm, hidden, fns)[:, -1, :]
     nxt = sample_rows(logits, generator, st.temps, st.topps) if do_sample else greedy(logits)
     if track_ids:
@@ -156,7 +168,7 @@ def _slot_verify_step(model: PaliGemma, cache: KVCache, st: _SlotState, fns: Ker
     positions = lens[:, None] + torch.arange(k, dtype=torch.int32, device=lens.device)
     embeds = gemma.embed_tokens(model.llm, inp)
     hidden, _ = gemma.forward(model.llm, embeds, positions, cache, fns, multi_token_decode=True,
-                              row_lengths=lens)
+                              row_lengths=lens, lora=st.lora)
     flat = gemma.logits(model.llm, hidden, fns).reshape(b * k, -1)
     if do_sample:
         a = sample_rows(flat, generator, st.temps.repeat_interleave(k), st.topps.repeat_interleave(k))
@@ -183,16 +195,25 @@ def _resize_kv(full: KVCache, target: int) -> KVCache:
     return dataclasses.replace(full, **cut, graphs={})
 
 
+def _stack_group_adapters(group: Sequence[dict]) -> dict:
+    """Per-request adapters ``{target: {"a": (L, D, r), "b": (L, r, out)}}``
+    -> the group's, with a row axis: ``(L, G, D, r)`` / ``(L, G, r, out)``."""
+    return {n: {x: torch.stack([ad[n][x] for ad in group], dim=1) for x in ("a", "b")}
+            for n in group[0]}
+
+
 def _insert_group(full: KVCache, temp_kv: Sequence[torch.Tensor], slots: torch.Tensor, st: _SlotState,
                   valid: torch.Tensor, logits: torch.Tensor, generator: Optional[torch.Generator],
                   req_temps: torch.Tensor, req_topps: torch.Tensor, sampled: bool,
-                  prompt_ids: Optional[torch.Tensor]) -> torch.Tensor:
+                  prompt_ids: Optional[torch.Tensor], grouped: Optional[dict] = None) -> torch.Tensor:
     """A join group's first tokens (per-row sampled, or greedy when no
     joiner samples) and its prefilled K/V rows (with the int8 cache's
     scales) scattered into ``[:, slots, :t_b]``; lengths, tokens,
-    temperatures and top-p set, and with a token history each joiner's
-    prompt and first token. ``slots`` (G,) int64: pad rows name the trash
-    row. Returns the (G,) int32 first tokens, left on the device."""
+    temperatures and top-p set, with a token history each joiner's prompt
+    and first token, and with per-slot adapters the group's stacked
+    adapters (``grouped``) written into the slots' rows in place. ``slots``
+    (G,) int64: pad rows name the trash row. Returns the (G,) int32 first
+    tokens, left on the device."""
     first = sample_rows(logits, generator, req_temps, req_topps) if sampled else greedy(logits)
     t_b = temp_kv[0].shape[2]
     names = ("k", "v", "k_scale", "v_scale")[: len(temp_kv)]
@@ -207,6 +228,10 @@ def _insert_group(full: KVCache, temp_kv: Sequence[torch.Tensor], slots: torch.T
         st.ids_buf[slots, : prompt_ids.shape[1]] = prompt_ids
         st.ids_buf[slots, valid.long()] = first
         st.buf_lens[slots] = valid + 1
+    if st.lora is not None:
+        for name, ad in st.lora.items():
+            for x in ("a", "b"):
+                ad[x][:, slots] = grouped[name][x]
     return first
 
 
@@ -268,19 +293,28 @@ class _JoinPrefill(generation._Captured):
         self.ids = torch.zeros((g_b, bucket), dtype=torch.int32, device=dev)
         self.pix = torch.zeros((g_b, 3, size, size), dtype=engine.pix_dtype, device=dev)
         self.valid = torch.zeros(g_b, dtype=torch.int32, device=dev)
+        # The group's per-row adapters (a static input of the graph).
+        self.lora = None if engine.state.lora is None else {
+            n: {x: t.new_zeros((t.shape[0], g_b, *t.shape[2:])) for x, t in ad.items()}
+            for n, ad in engine.state.lora.items()}
         self.logits, self.mib = None, 0.0
 
     def _run(self, model: PaliGemma) -> torch.Tensor:
         self.cache.length.zero_()
         self.cache.host_length = 0
-        logits, _ = serving.batched_prefill(model, self.ids, self.pix, self.valid, self.cache, self.fns)
+        logits, _ = serving.batched_prefill(model, self.ids, self.pix, self.valid, self.cache, self.fns,
+                                            lora=self.lora)
         return logits
 
     def run(self, engine: "ContinuousBatcher", ids: torch.Tensor, pix: torch.Tensor,
-            valid: torch.Tensor) -> torch.Tensor:
+            valid: torch.Tensor, grouped: Optional[dict] = None) -> torch.Tensor:
         self.ids.copy_(ids)
         self.pix.copy_(pix)
         self.valid.copy_(valid)
+        if self.lora is not None:
+            for name, ad in self.lora.items():
+                for x, buf in ad.items():
+                    buf.copy_(grouped[name][x])
         if engine.device.type != "cuda":
             return self._run(engine.model)
         if self.graph is None:
@@ -324,8 +358,9 @@ class Request:
     _ids = itertools.count()  # count().__next__ is atomic in CPython
 
     def __init__(self, prompt: str, image, max_new_tokens: int, temperature: float = 0.0,
-                 top_p: float = 0.9):
+                 top_p: float = 0.9, adapter: Optional[str] = None):
         self.id = next(Request._ids)
+        self.adapter = adapter  # a registered LoRA adapter's name, or None
         self.prompt = prompt
         self.image = image
         self.max_new_tokens = max_new_tokens
@@ -350,7 +385,7 @@ class Request:
 
 class ContinuousBatcher:
     """Slot-level continuous batching engine (the reference's
-    ``ContinuousBatcher``, with every argument of it but ``lora_rank``).
+    ``ContinuousBatcher``).
 
     Args:
       model: a ``PaliGemma`` on its device (the engine runs where it is).
@@ -376,6 +411,9 @@ class ContinuousBatcher:
         reference's policy; ``draft_noise``: the probability that a draft
         is replaced by a uniform vocab id (its own generator; it lowers
         acceptance only); ``spec_drafter``: "ngram" or "longest".
+      lora_rank: serve LoRA adapters of rank up to this, a different one
+        in every slot (``register_adapter``, ``submit(..., adapter=name)``);
+        requests without one ride the all-zeros adapter.
       seed: one ``torch.Generator`` on the engine's device for sampling
         (the draft noise draws from a second one).
       fns: the kernel functions (``ops.kernels.KERNELS``).
@@ -412,8 +450,6 @@ class ContinuousBatcher:
         spec_drafter: str = "ngram",
         fns: KernelFns = KERNELS,
     ):
-        if lora_rank:
-            raise ValueError("lora_rank: per-slot LoRA is not ported yet (the port has no LoRA module)")
         self.model, self.processor, self.fns = model, processor, fns
         self.cfg = cfg = model.cfg
         self.device = dev = model.llm.final_norm.weight.device
@@ -515,6 +551,17 @@ class ContinuousBatcher:
             noise=(torch.tensor(self.draft_noise, dtype=torch.float32, device=dev)
                    if self.draft_noise is not None else None),
         )
+        self.lora_rank = int(lora_rank) if lora_rank else None
+        self._adapters: Dict[str, dict] = {}
+        self._zero_adapter = None
+        if self.lora_rank:
+            tc = cfg.text_config
+            l, d, r = tc.num_hidden_layers, tc.hidden_size, self.lora_rank
+            outs = lora.out_dims(cfg).items()
+            self.state.lora = {n: {"a": zeros((l, b, d, r), torch.float32),
+                                   "b": zeros((l, b, r, out), torch.float32)} for n, out in outs}
+            self._zero_adapter = {n: {"a": zeros((l, d, r), torch.float32), "b": zeros((l, r, out), torch.float32)}
+                                  for n, out in outs}
         self.spec_verifies = 0
         self.spec_emitted = 0
         self.slot_req: List[Optional[Request]] = [None] * n_slots
@@ -614,15 +661,16 @@ class ContinuousBatcher:
             self._log_capture(key, runner)
         return runner
 
-    def _prefill(self, ids: np.ndarray, pix: torch.Tensor, valid: np.ndarray):
-        """The join group's batched prefill through its shape's runner:
+    def _prefill(self, ids: np.ndarray, pix: torch.Tensor, valid: np.ndarray, grouped: Optional[dict] = None):
+        """The join group's batched prefill through its shape's runner, with
+        the group's stacked adapters when the engine has ``lora_rank``:
         (logits (G, V), the temporary cache's K/V buffers)."""
         g_b, bucket = ids.shape
         runner = self._prefills.get((g_b, bucket))
         if runner is None:
             runner = self._prefills[(g_b, bucket)] = _JoinPrefill(self, g_b, bucket)
         had = runner.graph is not None
-        logits = runner.run(self, self._h2d(ids), pix, self._h2d(valid))
+        logits = runner.run(self, self._h2d(ids), pix, self._h2d(valid), grouped)
         if not had:
             self._log_capture(("prefill", g_b, bucket), runner)
         return logits, runner.kv()
@@ -642,7 +690,7 @@ class ContinuousBatcher:
             for g_b in sorted({1, self.n_slots}):
                 self._prefill(np.zeros((g_b, bucket), np.int32),
                               torch.zeros((g_b, 3, size, size), dtype=self.pix_dtype, device=self.device),
-                              np.full((g_b,), bucket, np.int32))
+                              np.full((g_b,), bucket, np.int32), self._group_adapters([None] * g_b))
         if not self.spec_k:
             flavours = (0,)
         elif self.spec_adaptive:
@@ -668,11 +716,51 @@ class ContinuousBatcher:
 
     # -- request lifecycle ---------------------------------------------------
 
+    def register_adapter(self, name: str, adapter: dict, scale: float = 1.0) -> None:
+        """Register a LoRA adapter for multi-tenant serving under ``name``.
+
+        ``adapter``: ``{"layers": {"q"|"k"|"v": {"a": (L, D, r), "b": (L, r,
+        out)}}}`` or the layers dict (tensors or arrays, e.g. from
+        ``lora.load_adapter``); ``scale``: alpha / r. The scale is folded
+        into b (one graph serves adapters of every alpha), and a rank below
+        the engine's ``lora_rank`` is zero-padded to it (exact); a higher
+        rank raises. Re-registering a name drops the prefix cache."""
+        if not self.lora_rank:
+            raise ValueError("engine built without lora_rank")
+        layers = adapter.get("layers", adapter)
+        out = {}
+        for tgt in gemma.LORA_TARGETS:
+            a = torch.as_tensor(layers[tgt]["a"]).to(self.device, torch.float32)
+            b = torch.as_tensor(layers[tgt]["b"]).to(self.device, torch.float32) * float(scale)
+            r = a.shape[-1]
+            if r > self.lora_rank:
+                raise ValueError(f"adapter rank {r} exceeds engine lora_rank {self.lora_rank}")
+            pad = self.lora_rank - r
+            out[tgt] = {"a": torch.nn.functional.pad(a, (0, pad)),
+                        "b": torch.nn.functional.pad(b, (0, 0, 0, pad))}
+        self._adapters[name] = out
+        self._prefill_cache.clear()
+
+    @property
+    def adapters(self) -> List[str]:
+        """The registered adapters' names, sorted."""
+        return sorted(self._adapters)
+
+    def _group_adapters(self, names: Sequence[Optional[str]]) -> Optional[dict]:
+        """The stacked adapters of a join group's rows (None: the zero
+        adapter), or None on an engine without ``lora_rank``."""
+        if not self.lora_rank:
+            return None
+        return _stack_group_adapters([self._zero_adapter if n is None else self._adapters[n] for n in names])
+
     def submit(self, prompt: str, image, max_new_tokens: Optional[int] = None,
                temperature: Optional[float] = None, top_p: Optional[float] = None,
-               do_sample: Optional[bool] = None) -> Request:
+               do_sample: Optional[bool] = None, adapter: Optional[str] = None) -> Request:
         """Queue a request; sampling values default to the engine's, and
-        ``do_sample=False`` (or temperature <= 0) is greedy."""
+        ``do_sample=False`` (or temperature <= 0) is greedy. ``adapter``
+        names a registered LoRA adapter (an unknown name raises)."""
+        if adapter is not None and adapter not in self._adapters:
+            raise ValueError(f"unknown adapter {adapter!r}; register_adapter it first")
         if do_sample is None:
             do_sample = self.do_sample
         if temperature is None:
@@ -684,7 +772,7 @@ class ContinuousBatcher:
             max_new_tokens = self.max_new_tokens
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        req = Request(prompt, image, max_new_tokens, temperature=eff_t, top_p=float(top_p))
+        req = Request(prompt, image, max_new_tokens, temperature=eff_t, top_p=float(top_p), adapter=adapter)
         if req.max_new_tokens > self.max_new_tokens:
             raise ValueError(f"max_new_tokens {req.max_new_tokens} exceeds the engine budget "
                              f"{self.max_new_tokens} (cache is sized statically)")
@@ -704,13 +792,15 @@ class ContinuousBatcher:
         # its length and rows.
 
     def _prefill_key(self, req: Request) -> str:
-        """The prefix cache's content key: prompt + image pixels."""
+        """The prefix cache's content key: prompt + image pixels + adapter
+        (an adapter changes the prompt's K/V)."""
         h = hashlib.sha1()
         h.update(req.prompt.encode())
         h.update(b"||")
         im = req.image
         h.update(f"{getattr(im, 'mode', '')}{getattr(im, 'size', '')}".encode())
         h.update(im.tobytes() if hasattr(im, "tobytes") else np.asarray(im).tobytes())
+        h.update(f"|{req.adapter or ''}|".encode())
         return h.hexdigest()
 
     def _preprocess_one(self, req: Request):
@@ -863,6 +953,8 @@ class ContinuousBatcher:
         g_b = 1 if g == 1 else self.n_slots
         reqs = [r for _, r in joiners]
         dev = self.device
+        # Pad rows ride the zero adapter.
+        grouped = self._group_adapters([r.adapter for r in reqs] + [None] * (g_b - g))
         key_c = self._prefill_key(reqs[0]) if (g_b == 1 and self.prefill_cache_size) else None
         hit = self._prefill_cache.get(key_c) if key_c else None
         if hit is not None:
@@ -909,7 +1001,7 @@ class ContinuousBatcher:
                 pix = processing.apply_pixel_lut(self._pixel_lut, pix_u8)
             self.host_t["h2d"] += time.perf_counter() - t_h2d0
             t_pf0 = time.perf_counter()
-            logits, temp_kv = self._prefill(ids, pix, valid)
+            logits, temp_kv = self._prefill(ids, pix, valid, grouped)
             self.host_t["prefill_dispatch"] += time.perf_counter() - t_pf0
             if key_c is not None:
                 # The entry owns copies: the next join overwrites the runner's.
@@ -929,7 +1021,7 @@ class ContinuousBatcher:
         first = _insert_group(
             self.full_cache, temp_kv, self._h2d(slots), self.state, self._h2d(valid), logits, self.generator,
             self._h2d(req_temps), self._h2d(req_topps), bool(np.any(req_temps[:g] > 0)),
-            self._h2d(ids) if self.spec_k else None,
+            self._h2d(ids) if self.spec_k else None, grouped,
         )
         for i, (slot, _) in enumerate(joiners):
             self.host_lengths[slot] = int(valid[i])

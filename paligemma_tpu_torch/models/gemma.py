@@ -52,6 +52,13 @@ final RMSNorm, fp32 logits through the tied embedding.
   ``MLP_FUSED_MAX_ROWS`` rows to the fused MLP and larger ones to the int8
   companions, as the reference does. An int8 embedding makes the trunk bf16
   (its lookup is bf16) and gives fp32 logits through ``q8``.
+- LoRA adapters on the q/k/v projections (``lora``, the reference's
+  ``_lora_delta``): ``scale * (drop(x) @ A) @ B`` added to each projection's
+  output after the fused qkv split and before RoPE. Adapters are a dict
+  ``{"q"|"k"|"v": {"a": (L, D, r), "b": (L, r, out)}}`` shared by every row,
+  or ``(L, B, D, r)`` / ``(L, B, r, out)`` per row (continuous serving's
+  slots). Their products are PyTorch ``matmul`` calls, as the reference's
+  are XLA einsums outside its kernels.
 """
 from __future__ import annotations
 
@@ -155,6 +162,38 @@ def proj(x: torch.Tensor, w: nn.Module, fns: KernelFns) -> torch.Tensor:
     return F.linear(x, w.weight)
 
 
+def lora_delta(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    scale: float,
+    dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """LoRA update ``scale * (drop(x) @ A) @ B`` of x (B, T, D) in x.dtype
+    (the reference's ``_lora_delta``).
+
+    Shared adapters a (D, r), b (r, out), or per-row a (B, D, r),
+    b (B, r, out). The adapters are rounded to x.dtype and each product is
+    one ``matmul`` in x.dtype (fp32 accumulation, one rounding to x.dtype,
+    as the reference's einsums with ``preferred_element_type=float32``),
+    then times ``scale`` rounded to x.dtype (1.0: no product). An
+    all-zeros row is an exact no-op. With ``dropout`` > 0 and a
+    ``generator``, each element of x is kept with probability
+    ``1 - dropout`` (drawn from the generator) and divided by it.
+    """
+    dt = x.dtype
+    xl = x
+    if dropout > 0.0 and generator is not None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - dropout
+        xl = torch.where(keep, x / (1.0 - dropout), 0.0).to(dt)
+    out = torch.matmul(torch.matmul(xl, a.to(dt)), b.to(dt))
+    return out if scale == 1.0 else out * float(torch.tensor(scale, dtype=dt))
+
+
+LORA_TARGETS = ("q", "k", "v")
+
+
 class GemmaLayer(nn.Module):
     def __init__(self, cfg: GemmaConfig, dtype=None):
         super().__init__()
@@ -169,13 +208,20 @@ class GemmaLayer(nn.Module):
         self.down = nn.Linear(i, d, bias=False, dtype=dtype)
 
     def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
-                  mask: Optional[LengthMask] = None, multi_decode: bool = False):
+                  mask: Optional[LengthMask] = None, multi_decode: bool = False, lora=None,
+                  lora_scale: float = 1.0, lora_dropout: float = 0.0,
+                  lora_generator: Optional[torch.Generator] = None):
         """``pos``: the write positions, (T,) int64 shared by every row, or
-        a pair of (B, T) int64 row and position indices (per-row lengths)."""
+        a pair of (B, T) int64 row and position indices (per-row lengths).
+        ``lora``: this layer's adapters, ``{"q"|"k"|"v": (a, b)}``; each
+        target draws its own dropout mask, in the order q, k, v."""
         cfg = self.cfg
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         q, k, v = proj(x, self.qkv, fns).split([h * hd, hkv * hd, hkv * hd], dim=-1)
+        if lora is not None:
+            q, k, v = (y + lora_delta(x, *lora[name], lora_scale, lora_dropout, lora_generator)
+                       for name, y in zip(LORA_TARGETS, (q, k, v)))
         q = apply_rope(q.view(b, t, h, hd), cos, sin)
         k = apply_rope(k.view(b, t, hkv, hd), cos, sin)
         v = v.view(b, t, hkv, hd)
@@ -211,8 +257,11 @@ class GemmaLayer(nn.Module):
         return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
 
     def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
-                mask: Optional[LengthMask] = None, multi_decode: bool = False):
-        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask, multi_decode)
+                mask: Optional[LengthMask] = None, multi_decode: bool = False, lora=None,
+                lora_scale: float = 1.0, lora_dropout: float = 0.0,
+                lora_generator: Optional[torch.Generator] = None):
+        h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask, multi_decode,
+                               lora, lora_scale, lora_dropout, lora_generator)
         return h + self.mlp(self.post_ln(h), fns)
 
 
@@ -244,6 +293,10 @@ def forward(
     mask: Optional[LengthMask] = None,
     multi_token_decode: bool = False,
     row_lengths: Optional[torch.Tensor] = None,
+    lora=None,
+    lora_scale: float = 1.0,
+    lora_dropout: float = 0.0,
+    lora_generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
@@ -270,6 +323,11 @@ def forward(
     sees ``[0, row_lengths[b] + 1 + i)``; RoPE positions are the caller's.
     The cache's shared length is neither read nor advanced, and the bounds
     check is the caller's (``check_row_room`` on its host mirror).
+
+    ``lora``: q/k/v adapters (``{"layers": {...}}`` or the layers dict;
+    shared or per row, see ``lora_delta``); layer ``li`` takes
+    ``[li]`` of each. ``lora_dropout`` with ``lora_generator`` draws one
+    mask a layer and target (training).
     """
     cfg = model.cfg
     dtype = inputs_embeds.dtype
@@ -289,7 +347,8 @@ def forward(
         pos = (_arange(b, row_lengths)[:, None].expand(b, t), cols)
         cache.valid.copy_(row_lengths + 1)  # query i sees valid + i (decode_attention)
         for li, layer in enumerate(model.layers):
-            h = layer(h, cos, sin, cache, pos, li, fns, None, True)
+            h = layer(h, cos, sin, cache, pos, li, fns, None, True, _layer_lora(lora, li), lora_scale,
+                      lora_dropout, lora_generator)
         return model.final_norm(h), cache
     if cache is not None:
         if t > 1 and not multi_token_decode and cache.host_length:
@@ -300,11 +359,20 @@ def forward(
         # A verify step's query i sees [0, length + 1 + i) (decode_attention).
         cache.valid.copy_((cache.length + (1 if multi_token_decode else t)).expand(b))
     for li, layer in enumerate(model.layers):
-        h = layer(h, cos, sin, cache, pos, li, fns, mask, multi_token_decode)
+        h = layer(h, cos, sin, cache, pos, li, fns, mask, multi_token_decode, _layer_lora(lora, li),
+                  lora_scale, lora_dropout, lora_generator)
     if cache is not None:
         cache.length.add_(t)
         cache.host_length += t
     return model.final_norm(h), cache
+
+
+def _layer_lora(lora, li: int):
+    """Layer ``li``'s slices ``{target: (a, b)}`` of the stacked adapters."""
+    if lora is None:
+        return None
+    layers = lora.get("layers", lora)
+    return {name: (layers[name]["a"][li], layers[name]["b"][li]) for name in LORA_TARGETS}
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -333,7 +401,9 @@ def logits(model: GemmaModel, hidden: torch.Tensor, fns: KernelFns = KERNELS) ->
 
     The product is accumulated and returned in fp32 without rounding through
     the activation dtype. On CUDA ``torch.mm(..., out_dtype=float32)`` does
-    that straight from the bf16 operands; elsewhere the operands are widened.
+    that straight from the bf16 operands (under autograd through
+    ``_WideLogits``, which gives it a gradient); elsewhere the operands are
+    widened.
     An int8 embedding goes through ``fns.q8`` with fp32 out; with
     ``lm_head_w4`` on, calls of up to 64 rows go through the 4-bit copy.
     """
@@ -345,10 +415,34 @@ def logits(model: GemmaModel, hidden: torch.Tensor, fns: KernelFns = KERNELS) ->
         return fns.q8(hidden, emb.weight, emb.scale, out_dtype=torch.float32)
     h2 = hidden.reshape(-1, hidden.shape[-1])
     if h2.is_cuda and h2.dtype != torch.float32:
-        out = torch.mm(h2, emb.t(), out_dtype=torch.float32)
+        if torch.is_grad_enabled() and h2.requires_grad:
+            out = _WideLogits.apply(h2, emb)
+        else:
+            out = torch.mm(h2, emb.t(), out_dtype=torch.float32)
     else:
         out = h2.float() @ emb.float().t()
     return out.reshape(*hidden.shape[:-1], emb.shape[0])
+
+
+class _WideLogits(torch.autograd.Function):
+    """``torch.mm(h, E^T, out_dtype=float32)`` (which has no derivative in
+    PyTorch) with its gradient for h: ``d h = d logits @ E`` accumulated in
+    fp32 from ``d logits`` rounded to E's dtype, rounded to h's dtype. Saves
+    E as it is (no fp32 copy of the (V, D) table); E takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, h2: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if emb.requires_grad:
+            raise ValueError("logits: the tied embedding takes no gradient on this path")
+        ctx.save_for_backward(emb)
+        ctx.h_dtype = h2.dtype
+        return torch.mm(h2, emb.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (emb,) = ctx.saved_tensors
+        dh = torch.mm(grad.to(emb.dtype), emb, out_dtype=torch.float32)
+        return dh.to(ctx.h_dtype), None
 
 
 def embed_tokens(model: GemmaModel, input_ids: torch.Tensor) -> torch.Tensor:

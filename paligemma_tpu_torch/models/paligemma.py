@@ -11,8 +11,10 @@
 - Prefill positions are 0..T-1; a decode step sits at position = cache
   length, read on the device (nothing goes back to the host), and a
   speculative verify step (``verify_step``) at length .. length + k - 1.
-- ``forward_nocache`` is the KV-cache-off ablation arm: the full
-  bidirectional pass over a (padded) buffer, positions 0..T-1.
+- ``forward_nocache`` is the KV-cache-off ablation arm and the LoRA
+  trainer's forward: the full bidirectional pass over a (padded) buffer,
+  positions 0..T-1; ``loss_fn`` its shifted cross-entropy; ``forward`` the
+  reference-shaped router over the three.
 
 Every function takes ``fns``, the kernel functions to run
 (``ops.kernels.KernelFns``); the default dispatches to the CUDA kernels on a
@@ -20,7 +22,7 @@ CUDA tensor, ``ops.kernels.PLAIN`` runs the plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -153,18 +155,104 @@ def forward_nocache(
     pixel_values: torch.Tensor,
     valid_len: Optional[torch.Tensor] = None,
     fns: KernelFns = KERNELS,
+    lora=None,
+    lora_scale: float = 1.0,
+    lora_dropout: float = 0.0,
+    lora_generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Cache-free full forward for the KV-cache-off ablation arm: fp32
-    logits (B, T, V).
+    """Cache-free full forward for the KV-cache-off ablation arm and the
+    LoRA trainer: fp32 logits (B, T, V).
 
     The reference's no-cache loop body: full bidirectional attention over
     the whole (padded) sequence, positions 0..T-1. ``valid_len`` ((B,) int32
     on the device, or None: all T) masks the padding slots, so one padded
-    buffer serves every step; positions past it are don't-cares.
+    buffer serves every step; positions past it are don't-cares. ``lora``
+    and its scale, dropout and generator go to ``gemma.forward``; the
+    vision tower and the projector carry no adapter and run without
+    building an autograd graph.
     """
     b, t = input_ids.shape
-    embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, fns))
+    with torch.no_grad():
+        embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, fns))
     positions = torch.arange(t, dtype=torch.int32, device=input_ids.device).expand(b, t)
     mask = None if valid_len is None else make_length_mask(valid_len, batch=b, device=input_ids.device)
-    hidden, _ = gemma.forward(model.llm, embeds, positions, None, fns, mask=mask)
+    hidden, _ = gemma.forward(model.llm, embeds, positions, None, fns, mask=mask, lora=lora,
+                              lora_scale=lora_scale, lora_dropout=lora_dropout,
+                              lora_generator=lora_generator)
     return gemma.logits(model.llm, hidden, fns)
+
+
+def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    """Mean next-token cross-entropy: position t's logits against label
+    t + 1, fp32 log-softmax, labels equal to ``ignore_index`` skipped, the
+    sum over valid labels divided by ``max(n_valid, 1)``."""
+    if labels.shape != logits.shape[:2]:
+        raise ValueError(f"labels {tuple(labels.shape)} do not match the logits' {tuple(logits.shape[:2])}")
+    shift_logits = logits[:, :-1, :]
+    shift_labels = labels[:, 1:].long()
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    tok_lp = logp.gather(-1, safe[..., None])[..., 0]
+    n_valid = valid.sum().clamp_min(1)
+    return -torch.where(valid, tok_lp, 0.0).sum() / n_valid
+
+
+def loss_fn(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: torch.Tensor,
+    labels: torch.Tensor,
+    valid_len: Optional[torch.Tensor] = None,
+    lora=None,
+    lora_scale: float = 1.0,
+    lora_dropout: float = 0.0,
+    lora_generator: Optional[torch.Generator] = None,
+    fns: KernelFns = KERNELS,
+) -> torch.Tensor:
+    """Shifted cross-entropy with ignore_index over ``forward_nocache``'s
+    logits: a 0-d fp32 tensor."""
+    logits = forward_nocache(model, input_ids, pixel_values, valid_len, fns, lora=lora,
+                             lora_scale=lora_scale, lora_dropout=lora_dropout,
+                             lora_generator=lora_generator)
+    return shifted_cross_entropy(logits, labels, model.cfg.ignore_index)
+
+
+def forward(
+    model: PaliGemma,
+    input_ids: torch.Tensor,
+    pixel_values: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    kv_cache: Optional[KVCache] = None,
+    labels: Optional[torch.Tensor] = None,
+    fns: KernelFns = KERNELS,
+) -> Dict[str, object]:
+    """Reference-shaped forward: ``{"logits"[, "loss"][, "kv_cache"]}``.
+
+    Routing on host values, as the reference's: no cache -> the full
+    forward without a cache; an empty cache -> prefill; a warm cache and
+    one token -> a decode step (more than one token raises ValueError).
+    ``attention_mask`` must be all ones ("The input cannot be padded");
+    padded batches go through ``serving``.
+    """
+    if attention_mask is not None and not bool((attention_mask == 1).all()):
+        raise AssertionError("The input cannot be padded")
+    out: Dict[str, object] = {}
+    if kv_cache is None:
+        logits = forward_nocache(model, input_ids, pixel_values, fns=fns)
+    else:
+        if kv_cache.host_length > 0:
+            if input_ids.shape[1] != 1:
+                raise ValueError(
+                    "warm-cache continuation supports one token per step "
+                    f"(got {input_ids.shape[1]}); decode token-by-token, or prefill the "
+                    "whole prefix into a fresh cache"
+                )
+            logits, kv_cache = decode_step(model, input_ids, kv_cache, fns)
+        else:
+            logits, kv_cache = prefill(model, input_ids, pixel_values, kv_cache, fns=fns)
+        out["kv_cache"] = kv_cache
+    out["logits"] = logits
+    if labels is not None:
+        out["loss"] = shifted_cross_entropy(logits, labels, model.cfg.ignore_index)
+    return out

@@ -159,12 +159,67 @@ def flash_attention(
 
     q: (B, T, H, D); k, v: (B, S, Hkv, D) with H % Hkv == 0. ``valid_len``:
     None, an int or a (B,) int tensor. Returns (B, T, H, D) in q.dtype.
+
+    Under grad mode with an input that requires grad, the call goes through
+    ``FlashAttentionFn`` (``FlashAttentionPlainFn`` on the CPU), which gives
+    it a gradient; otherwise it is one launch, or the plain version on the
+    CPU.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        fn = FlashAttentionPlainFn if q.device.type == "cpu" else FlashAttentionFn
+        return fn.apply(q, k, v, valid_len, scale, gen_start, gen_end)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, valid_len, scale, gen_start, gen_end)
     out = launch_flash(q, k, v, valid_len, scale, gen_start, gen_end)
     flash_attention.launches += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is one launch of the
+    flash kernel (the bits of the call without grad, counted as a launch);
+    the backward is the gradient of ``flash_attention_plain``'s function,
+    recomputed from the saved q, k, v and mask arguments with
+    ``torch.autograd.grad`` through the plain version (fp32 scores and
+    softmax, as the reference's trainer differentiates its XLA attention).
+    It launches no kernel of the port."""
+
+    @staticmethod
+    def _forward(q, k, v, valid_len, scale, gen_start, gen_end):
+        out = launch_flash(q, k, v, valid_len, scale, gen_start, gen_end)
+        flash_attention.launches += 1
+        return out
+
+    @classmethod
+    def forward(cls, ctx, q, k, v, valid_len=None, scale=None, gen_start=None, gen_end=None):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (valid_len, scale, gen_start, gen_end)
+        return cls._forward(q, k, v, valid_len, scale, gen_start, gen_end)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_plain(q, k, v, *ctx.mask)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return (dq, dk, dv) + (None,) * 4
+
+
+class FlashAttentionPlainFn(FlashAttentionFn):
+    """``FlashAttentionFn`` with the plain forward (any device): the same
+    backward, so the CPU holds it to the reference."""
+
+    @staticmethod
+    def _forward(q, k, v, valid_len, scale, gen_start, gen_end):
+        return flash_attention_plain(q, k, v, valid_len, scale, gen_start, gen_end)
+
+
+def refuse_grad(name: str, *xs) -> None:
+    """Raise before a launch when a kernel without a backward would end the
+    autograd graph: grad mode is on and one of ``xs`` requires grad."""
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        raise ValueError(f"{name}: the CUDA kernel has no backward; call it under torch.no_grad() "
+                         "or on inputs that do not require grad")
 
 
 def launch_flash(
@@ -273,6 +328,7 @@ def decode_attention(
         return decode_attention_plain(
             q, k_cache, v_cache, valid_len, scale, gen_start, gen_end, k_scale, v_scale
         )
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     b, t, h, d = q.shape
     s_len, hkv = k_cache.shape[1], k_cache.shape[2]
     kv8 = k_scale is not None or v_scale is not None

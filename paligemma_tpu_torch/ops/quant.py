@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from paligemma_tpu_torch.ops import _build
+from paligemma_tpu_torch.ops.cuda_attention import refuse_grad
 
 # Rows of one fused-MLP call; more rows take the int8 companions
 # (the reference's VMEM budget, kept as the routing rule).
@@ -148,6 +149,7 @@ def quant_rows(x: torch.Tensor, geglu_prologue: bool = False):
     input is a fused (M, 2I) [gate | up] row and the output covers (M, I)."""
     if x.device.type == "cpu":
         return quant_rows_plain(x, geglu_prologue)
+    refuse_grad("quant_rows", x)
     m, width = x.shape
     d = width // 2 if geglu_prologue else width
     _check_rows("quant_rows", x, d_multiple=16 if geglu_prologue else 8)
@@ -229,6 +231,7 @@ def q8_matmul(
     in ``out_dtype`` (default x.dtype; the kernel writes bf16 or fp32)."""
     if x.device.type == "cpu":
         return q8_matmul_plain(x, q, scale, out_dtype)
+    refuse_grad("q8_matmul", x, q, scale)
     out = _weight_only("q8_matmul", "pg_q8_matmul", x, q, scale, out_dtype, torch.int8, 1)
     q8_matmul.launches += 1
     return out
@@ -255,6 +258,7 @@ def q4_matmul(
     fp32). The int4 weight-only matmul: the activations stay in x.dtype."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, packed, scale, out_dtype)
+    refuse_grad("q4_matmul", x, packed, scale)
     out = _weight_only("q4_matmul", "pg_q4_matmul", x, packed, scale, out_dtype, torch.uint8, 2)
     q4_matmul.launches += 1
     return out
@@ -287,6 +291,7 @@ def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
         return a8_matmul_plain(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"a8_matmul: activations must be on a CUDA device, got {x.device}")
+    refuse_grad("a8_matmul", x, q, scale)
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
     m, o = x2.shape[0], q.shape[0]
@@ -329,6 +334,7 @@ def w4a8_gemv(
     (64 rows of x at a time stream the weight once)."""
     if xq.device.type == "cpu":
         return w4a8_gemv_plain(xq, xs, packed, scale, out_dtype)
+    refuse_grad("w4a8_gemv", xq, xs, packed, scale)
     m, d = xq.shape
     o = packed.shape[0]
     if xq.dtype != torch.int8 or xs.dtype != torch.float32 or xs.shape != (m,):
@@ -384,6 +390,7 @@ def q4a8_matmul(
     quantizes x in its prologue; more rows a ``quant_rows`` launch first."""
     if x.device.type == "cpu":
         return q4a8_matmul_plain(x, packed, scale, out_dtype)
+    refuse_grad("q4a8_matmul", x, packed, scale)
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
     out_dtype = _out_dtype("q4a8_matmul", out_dtype or x.dtype)
@@ -420,6 +427,7 @@ def w4a8_geglu(x: torch.Tensor, gu_packed: torch.Tensor, gu_scale: torch.Tensor)
     ``W4A8_PROLOGUE_MAX_ROWS`` rows."""
     if x.device.type == "cpu":
         return w4a8_geglu_plain(x, gu_packed, gu_scale)
+    refuse_grad("w4a8_geglu", x, gu_packed, gu_scale)
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
     if gu_packed.shape[0] % 2:
@@ -462,6 +470,7 @@ def mlp_w4a8(
     down GEMV."""
     if x.device.type == "cpu":
         return mlp_w4a8_plain(x, gu_packed, gu_scale, dn_packed, dn_scale)
+    refuse_grad("mlp_w4a8", x, gu_packed, gu_scale, dn_packed, dn_scale)
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
     if x2.shape[0] <= W4A8_PROLOGUE_MAX_ROWS:

@@ -90,6 +90,7 @@ def batched_prefill(
     valid: torch.Tensor,
     cache: KVCache,
     fns: KernelFns = KERNELS,
+    lora=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill a right-padded batch with per-row validity masking.
 
@@ -97,6 +98,9 @@ def batched_prefill(
     of each row's last valid position, the warm cache). The cache's length
     advances by the padded T; pad slots hold garbage K/V that decode keeps
     masked. RoPE positions past a row's length are clamped to its last.
+    ``lora``: per-row decoder adapters (``{"q"|"k"|"v": {"a": (L, B, D, r),
+    "b": (L, B, r, out)}}``, the scale folded into b): each row of a join
+    group carries its own.
     """
     b, t = input_ids.shape
     embeds = paligemma.merge_prefix(model, input_ids, paligemma.encode_image(model, pixel_values, fns))
@@ -104,7 +108,7 @@ def batched_prefill(
     positions = torch.minimum(
         torch.arange(t, dtype=torch.int32, device=input_ids.device)[None, :], last[:, None])
     mask = make_length_mask(valid, batch=b, device=input_ids.device)
-    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns, mask=mask)
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns, mask=mask, lora=lora)
     idx = last.long()[:, None, None].expand(b, 1, hidden.shape[-1])
     return gemma.logits(model.llm, hidden.gather(1, idx), fns)[:, 0, :], cache
 

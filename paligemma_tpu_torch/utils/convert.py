@@ -9,6 +9,9 @@ imports jax. This is the only place where layouts change:
 - dense kernels, stored ``(in, out)`` by JAX, are transposed to
   ``nn.Linear``'s ``(out, in)``;
 - LayerNorm ``scale`` becomes ``weight``.
+
+LoRA adapters keep the reference's layout (``lora_from_jax``,
+``lora_to_jax``).
 """
 from __future__ import annotations
 
@@ -75,3 +78,18 @@ def from_jax_params(
     }
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def lora_from_jax(tree: Tree, device="cuda", dtype: torch.dtype = torch.float32) -> Tree:
+    """JAX LoRA adapters (nested dicts of numpy arrays, the layout of
+    ``paligemma_tpu/lora.py``: ``{"layers": {"q": {"a": (L, D, r), "b":
+    (L, r, out)}, ...}}``) as the port's: the same layout, as tensors."""
+    return {k: lora_from_jax(v, device, dtype) if isinstance(v, dict)
+            else torch.tensor(np.asarray(v, dtype=np.float32)).to(device, dtype)
+            for k, v in tree.items()}
+
+
+def lora_to_jax(tree: Tree) -> Tree:
+    """Inverse of ``lora_from_jax``: fp32 numpy arrays in the same layout."""
+    return {k: lora_to_jax(v) if isinstance(v, dict) else v.detach().to("cpu", torch.float32).numpy()
+            for k, v in tree.items()}

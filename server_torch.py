@@ -3,9 +3,11 @@ counterpart of ``server.py`` (standard library only).
 
     python3 server_torch.py --model_path DIR [--continuous] [--port 8000]
     python3 server_torch.py --demo --only_cpu [--batch_window_ms 300 | --continuous ...]
+    python3 server_torch.py --model_path DIR --continuous --adapter NAME=DIR [--adapter ...]
 
 Endpoints:
-  GET  /healthz           -> {"status": "ok", "model": "...", "device": "..."}
+  GET  /healthz           -> {"status": "ok", "model": "...", "device": "..."[,
+      "adapters": [...] in continuous mode]}
   GET  /metrics           -> serving counters: HTTP codes, in-flight count and,
       in continuous mode, slot occupancy, engine queue, tokens delivered,
       chunks, prefix-cache and staged-upload hits, speculative acceptance
@@ -13,7 +15,10 @@ Endpoints:
   POST /generate          -> {"text": ..., "tokens": [...], "num_tokens": N}
       JSON body: {"prompt": str, "image_b64": base64 image bytes,
                   "max_tokens": int=100, "temperature": float=0.8,
-                  "top_p": float=0.9, "do_sample": bool=false}
+                  "top_p": float=0.9, "do_sample": bool=false,
+                  "adapter": str|null}  (adapter: a LoRA adapter registered
+                  at startup with --adapter NAME=DIR; continuous mode only,
+                  every decode slot can serve a different adapter)
   POST /generate_stream   -> Server-Sent Events: ``data: {"tokens": [...],
       "text_delta": "..."}`` a decode chunk, then ``data: {"done": true,
       "num_tokens": N}``.
@@ -33,9 +38,11 @@ frees at the next chunk) and answered 504 (mid-stream: a terminal
 
 The server runs on the CUDA card; ``--only_cpu`` is the only way onto the
 CPU, and without it the server exits with an error when there is no card.
-LoRA adapters (``--adapter``, ``--lora_rank``) are refused: the port has no
-LoRA module yet. ``build_server`` makes the server from a loaded model and
-processor and the parsed flags; ``main`` loads and calls it.
+``--adapter NAME=DIR`` (repeatable) registers a saved LoRA adapter with the
+continuous engine (its rank from the files, its alpha from
+``adapter_config.json``; ``--lora_rank`` raises the engine's rank).
+``build_server`` makes the server from a loaded model and processor and the
+parsed flags; ``main`` loads and calls it.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import base64
 import contextlib
 import io
 import json
+import os
 import queue
 import sys
 import threading
@@ -291,10 +299,13 @@ class Batcher:
 class ContinuousRunner:
     """Continuous batching behind /generate and /generate_stream: one thread
     drives ``ContinuousBatcher.step``; requests join its slots between
-    chunks. The same blocking ``submit(request) -> dict`` as ``Batcher``."""
+    chunks. The same blocking ``submit(request) -> dict`` as ``Batcher``.
+    ``adapters``: {name: (adapter, scale)} registered with the engine
+    before its graphs are captured; requests pick one by name."""
 
     def __init__(self, engine: Engine, n_slots: int = 4, chunk: int = 8, max_new_cap: int = 256,
-                 prompt_extra=(64,), prefill_cache=0, queue_depth: int = 64, deadline_s=None,
+                 prompt_extra=(64,), lora_rank=None, adapters=None, prefill_cache=0,
+                 queue_depth: int = 64, deadline_s=None,
                  spec_k: int = 0, spec_adaptive: bool = True, spec_max_slots=None, spec_chunk=None,
                  spec_ks=None, spec_drafter: str = "ngram", kv_quant: bool = False,
                  kv_window: bool = False, metrics: Metrics = None):
@@ -313,8 +324,10 @@ class ContinuousRunner:
             spec_max_slots=spec_max_slots,
             # Adaptive default: speculative chunks at half the plain cadence.
             spec_chunk=spec_chunk or (max(1, chunk // 2) if ((spec_k or spec_ks) and spec_adaptive) else None),
-            kv_quant=kv_quant, kv_window=kv_window, spec_drafter=spec_drafter,
+            kv_quant=kv_quant, kv_window=kv_window, spec_drafter=spec_drafter, lora_rank=lora_rank,
         )
+        for name, (tree, scale) in (adapters or {}).items():
+            self.batcher.register_adapter(name, tree, scale)
         self.batcher.prepare()  # every graph captured before traffic (CUDA)
         self.queue: "queue.Queue" = queue.Queue(maxsize=queue_depth)
         self.deadline_s = deadline_s if deadline_s else None
@@ -347,13 +360,13 @@ class ContinuousRunner:
             raise slot["result"]
         return slot["result"]
 
-    def submit_stream(self, prompt, image, max_tokens, temperature, top_p, do_sample):
+    def submit_stream(self, prompt, image, max_tokens, temperature, top_p, do_sample, adapter=None):
         """Yields (new_tokens, text_delta) a decode chunk, multiplexed over
         the slots (many streams decode at once)."""
         chunks: "queue.Queue" = queue.Queue()
         slot = self._new_slot({"prompt": prompt, "image": image, "max_tokens": max_tokens,
-                               "temperature": temperature, "top_p": top_p, "do_sample": do_sample},
-                              stream_q=chunks)
+                               "temperature": temperature, "top_p": top_p, "do_sample": do_sample,
+                               "adapter": adapter}, stream_q=chunks)
         tok = self.engine.processor.tokenizer
         seen, prev_text = [], ""
         try:
@@ -393,7 +406,7 @@ class ContinuousRunner:
             try:
                 creq = self.batcher.submit(req["prompt"], req["image"], min(req["max_tokens"], self.max_new_cap),
                                            temperature=req.get("temperature"), top_p=req.get("top_p"),
-                                           do_sample=req.get("do_sample"))
+                                           do_sample=req.get("do_sample"), adapter=req.get("adapter"))
                 sq = slot.get("stream_q")
                 if sq is not None:
                     # A join error reaches the stream as an error, not a
@@ -484,10 +497,18 @@ INDEX_HTML = """<!doctype html>
  <label>top-p <input id="topp" type="number" step="0.05" value="0.9"></label>
  <label>sample <input id="sample" type="checkbox" style="width:auto"></label>
 </div>
+<label id="adrow" hidden>adapter
+ <select id="adapter"><option value="">(base model)</option></select></label>
 <button id="go">Analyze</button>
 <h3>PaliGemma Insight</h3><div id="out"></div>
 <script>
 let b64=null;
+// Registered LoRA adapters (server --adapter NAME=DIR) populate a selector.
+fetch('/healthz').then(r=>r.json()).then(h=>{
+ if(h.adapters&&h.adapters.length){
+  for(const a of h.adapters){const o=document.createElement('option');
+   o.value=a;o.textContent=a;adapter.appendChild(o);}
+  adrow.hidden=false;}}).catch(()=>{});
 img.onchange=()=>{const f=img.files[0];const r=new FileReader();
  r.onload=()=>{b64=r.result.split(',')[1];preview.src=r.result;preview.hidden=false};
  r.readAsDataURL(f);};
@@ -496,7 +517,7 @@ go.onclick=async()=>{
  out.textContent='';go.disabled=true;
  const body=JSON.stringify({prompt:prompt.value,image_b64:b64,
    max_tokens:+maxtok.value,temperature:+temp.value,top_p:+topp.value,
-   do_sample:sample.checked});
+   do_sample:sample.checked,adapter:adapter.value||null});
  const resp=await fetch('/generate_stream',{method:'POST',body,
    headers:{'Content-Type':'application/json'}});
  if(!resp.ok){out.textContent='error: '+await resp.text();go.disabled=false;return}
@@ -557,7 +578,10 @@ def make_handler(engine: Engine, batcher=None, admission: Admission = None, metr
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._send(200, {"status": "ok", "model": engine.model_name, "device": str(engine.device)})
+                info = {"status": "ok", "model": engine.model_name, "device": str(engine.device)}
+                if isinstance(batcher, ContinuousRunner):
+                    info["adapters"] = batcher.batcher.adapters
+                self._send(200, info)
             elif self.path == "/metrics":
                 self._send(200, self._metrics_payload())
             elif self.path in ("/", "/index.html"):
@@ -585,8 +609,16 @@ def make_handler(engine: Engine, batcher=None, admission: Admission = None, metr
                               do_sample=bool(req.get("do_sample", False)))
                 if params["max_tokens"] < 1:
                     raise ValueError("max_tokens must be >= 1")
-                if req.get("adapter") is not None:
-                    raise ValueError("adapter: LoRA serving is not ported yet")
+                adapter = req.get("adapter")
+                if adapter is not None:
+                    # Adapters ride the continuous slots only; a bad name is a
+                    # 400, a join failure stays a 500.
+                    if not isinstance(batcher, ContinuousRunner):
+                        raise ValueError("adapter requires the server to run with --continuous "
+                                         "(and --adapter NAME=DIR)")
+                    if adapter not in batcher.batcher.adapters:
+                        raise ValueError(f"unknown adapter {adapter!r}; registered: {batcher.batcher.adapters}")
+                    params["adapter"] = str(adapter)
                 from PIL import Image
 
                 image = Image.open(io.BytesIO(base64.b64decode(req["image_b64"]))).convert("RGB")
@@ -724,9 +756,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk", type=int, default=32, help="continuous mode: decode steps a chunk")
     p.add_argument("--max_new_cap", type=int, default=256,
                    help="continuous mode: each slot's token budget (the cache is sized for it)")
-    p.add_argument("--lora_rank", type=int, default=None, help="refused: LoRA serving is not ported yet")
+    p.add_argument("--lora_rank", type=int, default=None,
+                   help="continuous mode: serve LoRA adapters up to this rank (default: the largest --adapter's)")
     p.add_argument("--adapter", action="append", default=[], metavar="NAME=DIR",
-                   help="refused: LoRA serving is not ported yet")
+                   help="register a LoRA adapter directory (saved by the finetune) under NAME; repeatable; "
+                        "requests select one with the 'adapter' field (continuous mode)")
     p.add_argument("--quant", choices=["none", "int8", "w4a8"], default="none",
                    help="int8: weight-only int8 decoder; w4a8: int4 MLP weights + int8 activations")
     p.add_argument("--prompt_buckets", type=_buckets, default=(64,),
@@ -775,6 +809,33 @@ def _warm_continuous(batcher: ContinuousRunner, size: int, prompt_buckets, n_slo
             t.join()
 
 
+def _adapter_specs(specs):
+    """[(name, directory)] from the ``--adapter NAME=DIR`` values."""
+    out = []
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            raise SystemExit(f"--adapter expects NAME=DIR, got {spec!r}")
+        out.append((name, path))
+    return out
+
+
+def _load_adapters(specs, lora_rank, device):
+    """({name: (adapter, alpha / r)}, engine rank) from ``--adapter``: each
+    adapter's rank from its files, its alpha from ``adapter_config.json``;
+    the engine's rank is the largest of them and ``--lora_rank``."""
+    from paligemma_tpu_torch import lora
+
+    adapters = {}
+    for name, path in _adapter_specs(specs):
+        tree = lora.load_adapter(path, device=device)
+        r = int(tree.get("layers", tree)["q"]["a"].shape[-1])
+        r_cfg, alpha = lora.saved_rank_alpha(path, r)
+        adapters[name] = (tree, alpha / r_cfg)
+        lora_rank = max(lora_rank or 0, r)
+    return adapters, lora_rank
+
+
 def build_server(model, processor, args, model_name: str = "model", host: str = "127.0.0.1"):
     """The HTTP server for a loaded (model, processor) and the parsed flags
     (``parser()``): the engine in the flags' mode, warmed up (its graphs
@@ -782,8 +843,6 @@ def build_server(model, processor, args, model_name: str = "model", host: str = 
     runner or None); the caller runs ``server.serve_forever()``."""
     from PIL import Image
 
-    if args.adapter or args.lora_rank:
-        raise SystemExit("--adapter / --lora_rank: LoRA serving is not ported yet")
     engine = Engine(model, processor, model_name)
     metrics = Metrics()
     size = model.cfg.vision_config.image_size
@@ -791,9 +850,11 @@ def build_server(model, processor, args, model_name: str = "model", host: str = 
     print("warm-up complete", file=sys.stderr, flush=True)
     if args.continuous:
         spec_k, spec_ks = _spec_config(args)
+        adapters, lora_rank = _load_adapters(args.adapter, args.lora_rank, engine.device)
         batcher = ContinuousRunner(
             engine, n_slots=args.n_slots, chunk=args.chunk, max_new_cap=args.max_new_cap,
-            prompt_extra=args.prompt_buckets, prefill_cache=args.prefill_cache, queue_depth=args.queue_depth,
+            prompt_extra=args.prompt_buckets, lora_rank=lora_rank, adapters=adapters,
+            prefill_cache=args.prefill_cache, queue_depth=args.queue_depth,
             deadline_s=None, spec_k=spec_k, spec_ks=spec_ks, spec_adaptive=args.spec_adaptive == "on",
             spec_max_slots=args.spec_max_slots, spec_chunk=args.spec_chunk, spec_drafter=args.spec_drafter,
             kv_quant=args.kv_quant == "on", kv_window=_kv_window_enabled(args), metrics=metrics)
@@ -818,9 +879,12 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     import torch
 
-    if args.adapter or args.lora_rank:
-        print("error: --adapter / --lora_rank: LoRA serving is not ported yet", file=sys.stderr)
-        return 2
+    from paligemma_tpu_torch.lora import ADAPTER_FILES
+
+    for name, path in _adapter_specs(args.adapter):
+        if not any(os.path.exists(os.path.join(path, f)) for f in ADAPTER_FILES):
+            print(f"error: --adapter {name}={path}: no saved adapter in that directory", file=sys.stderr)
+            return 2
     if args.prefill_a8 == "on" and args.quant not in ("int8", "w4a8"):
         print("error: --prefill_a8 on requires --quant int8 or w4a8", file=sys.stderr)
         return 2

@@ -15,7 +15,7 @@ accepted and rejected, and EOS occurs), the prompts and images of
   (two queue), chunk 3: plain, speculative (k = 4, n-gram) and ``kv_quant``
   + ``kv_window``, every request's tokens equal.
 - Ports of ``tests/test_continuous.py`` and ``tests/test_continuous_spec.py``
-  (without LoRA and the sharded engine) against the port's batch-1
+  (without the sharded engine; LoRA in ``test_torch_multi_lora.py``) against the port's batch-1
   ``generate``, and a free slot stepping past a shrunk window.
 """
 import dataclasses
@@ -253,12 +253,19 @@ def test_mid_flight_submit_and_budget_one(setup):
 
 
 def test_budget_guard_and_lora_refusal(setup):
+    """The budget guard; an engine without ``lora_rank`` refuses adapters,
+    as the reference's does."""
     eng = _engine(setup, n_slots=1, max_new_tokens=4)
     with pytest.raises(ValueError, match="exceeds the engine budget"):
         eng.submit(PROMPTS[0], setup[5][0], max_new_tokens=99)
+    tc = setup[3].cfg.text_config
+    ad = {n: {"a": torch.zeros(tc.num_hidden_layers, tc.hidden_size, 2),
+              "b": torch.zeros(tc.num_hidden_layers, 2, 8)} for n in ("q", "k", "v")}
+    with pytest.raises(ValueError, match="without lora_rank"):
+        eng.register_adapter("fin", ad, 1.0)
+    with pytest.raises(ValueError, match="unknown adapter"):
+        eng.submit(PROMPTS[0], setup[5][0], adapter="fin")
     eng.close()
-    with pytest.raises(ValueError, match="LoRA"):
-        _engine(setup, lora_rank=4)
 
 
 def test_mixed_greedy_and_sampled_slots(setup):

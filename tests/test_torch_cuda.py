@@ -11,7 +11,11 @@ graph must give the eager step's tokens and launch counts, greedy and
 sampled, and the prefill's graph the eager prefill's bits; the decode
 kernel's verify shape (T queries) gives each query row the bits of the
 one-query kernel, and the speculative verify iteration replayed as a CUDA
-graph the eager iteration's tokens and counts.
+graph the eager iteration's tokens and counts. Under autograd, flash goes
+through ``FlashAttentionFn`` (the kernel's bits forward, the plain
+version's gradient backward), every other wrapper refuses a grad-requiring
+input, ``gemma.logits`` has a gradient, and a LoRA train step and a
+``lora_rank`` engine run on the card.
 """
 import dataclasses
 
@@ -913,3 +917,182 @@ def test_tiny_engine_gives_batch1_tokens(cuda, kw):
         else:
             gap, bar = _top_two_gap(model, ids, pix, ref[:div])
             assert gap <= bar, (div, gap, bar)
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernel path (LoRA training)
+# ---------------------------------------------------------------------------
+
+
+def _cos_and_gap(got, ref):
+    got, ref = got.double().flatten(), ref.double().flatten()
+    cos = float(got @ ref / (got.norm() * ref.norm()))
+    return cos, abs(float(got.norm() / ref.norm()) - 1.0)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,valid", [
+    (1, 256, 16, 16, 72, None),        # SigLIP-224
+    (2, 320, 8, 1, 256, None),         # the Gemma training shape
+    (2, 320, 8, 1, 256, [320, 300]),   # ... with a right-padded row
+    (3, 77, 4, 2, 64, [77, 20, 51]),
+])
+def test_flash_function_forward_is_the_kernel_and_backward_the_plain_gradient(cuda, b, t, h, hkv, d, valid):
+    """``FlashAttentionFn``: the forward is the no-grad kernel call bit for
+    bit (one launch); dq, dk, dv equal autograd of ``flash_attention_plain``
+    (the same computation run apart: within 1e-5 relative) and lie within
+    cosine 0.9999 of the fp32 gradient."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (_rand(gen, (b, t, n, d), cuda).requires_grad_() for n in (h, hkv, hkv))
+    vl = None if valid is None else torch.tensor(valid, dtype=torch.int32, device=cuda)
+    w = torch.randn((b, t, h, d), generator=gen, device=cuda)
+    before = ca.launch_counts()["flash_attention"]
+    out = ca.flash_attention(q, k, v, vl)
+    assert out.grad_fn is not None and ca.launch_counts()["flash_attention"] == before + 1
+    with torch.no_grad():
+        assert torch.equal(out, ca.flash_attention(q, k, v, vl))
+    grads = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    assert ca.launch_counts()["flash_attention"] == before + 2  # the backward launches nothing
+    ref = torch.autograd.grad((ca.flash_attention_plain(q, k, v, vl).float() * w).sum(), (q, k, v))
+    wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref32 = torch.autograd.grad((ca.flash_attention_plain(*wide, vl) * w).sum(), wide)
+    for g, r, r32 in zip(grads, ref, ref32):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), r.float(), rtol=1e-5, atol=1e-5 * float(r.float().abs().max()))
+        assert _cos_and_gap(g, r32)[0] >= 0.9999
+
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """Every wrapper but flash refuses a grad-requiring CUDA input under
+    grad mode before it launches; under ``no_grad`` it runs."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _rand(gen, (4, 64), cuda).requires_grad_()
+    q8 = torch.randint(-127, 128, (32, 64), dtype=torch.int8, device=cuda, generator=gen)
+    sc = torch.rand(32, device=cuda, generator=gen) * 0.01
+    packed = quant.pack_int4(torch.randint(-8, 8, (32, 64), dtype=torch.int8, device=cuda, generator=gen))
+    xq = torch.randint(-127, 128, (4, 64), dtype=torch.int8, device=cuda, generator=gen)
+    xs = torch.rand(4, device=cuda, generator=gen)
+    qd = _rand(gen, (1, 1, 8, 64), cuda).requires_grad_()
+    cache = _rand(gen, (1, 32, 1, 64), cuda)
+    calls = {
+        "decode_attention": lambda: ca.decode_attention(qd, cache, cache, torch.tensor([5], device=cuda,
+                                                                                           dtype=torch.int32)),
+        "q8_matmul": lambda: quant.q8_matmul(x, q8, sc),
+        "q4_matmul": lambda: quant.q4_matmul(x, packed, sc),
+        "a8_matmul": lambda: quant.a8_matmul(x, q8, sc),
+        "q4a8_matmul": lambda: quant.q4a8_matmul(x, packed, sc),
+        "w4a8_gemv": lambda: quant.w4a8_gemv(xq, xs.requires_grad_(), packed, sc, torch.bfloat16),
+        "w4a8_geglu": lambda: quant.w4a8_geglu(x, packed, sc),
+        "mlp_w4a8": lambda: quant.mlp_w4a8(x, packed, sc, packed, sc),
+        "quant_rows": lambda: quant.quant_rows(x),
+    }
+    for name, call in calls.items():
+        before = kernels.call_counts()
+        with pytest.raises(ValueError, match=f"{name}: the CUDA kernel has no backward"):
+            call()
+        assert kernels.call_counts() == before, name
+    with torch.no_grad():
+        quant.q8_matmul(x, q8, sc)
+
+
+def test_logits_gradient_is_the_widened_products(cuda):
+    """``gemma.logits`` on a bf16 hidden that requires grad: fp32 logits
+    equal to the no-grad call, and d hidden within cosine 0.9999 and 2^-6
+    of the largest element of autograd of the widened fp32 product."""
+    cfg = paligemma_tpu_torch.tiny_config().text_config
+    llm = gemma.GemmaModel(dataclasses.replace(cfg, vocab_size=3000, hidden_size=256), torch.bfloat16).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    with torch.no_grad():
+        llm.embed.normal_(0.0, 0.05, generator=gen)
+    llm.embed.requires_grad_(False)
+    h = _rand(gen, (2, 7, 256), cuda).requires_grad_()
+    g = torch.randn((2, 7, 3000), generator=gen, device=cuda)
+    out = gemma.logits(llm, h)
+    with torch.no_grad():
+        assert out.dtype == torch.float32 and torch.equal(out, gemma.logits(llm, h))
+    (dh,) = torch.autograd.grad((out * g).sum(), h)
+    (ref,) = torch.autograd.grad(((h.float() @ llm.embed.float().t()) * g).sum(), h)
+    assert dh.dtype == torch.bfloat16
+    assert _cos_and_gap(dh, ref)[0] >= 0.9999
+    assert float((dh.float() - ref.float()).abs().max()) <= 2.0**-6 * float(ref.float().abs().max())
+
+
+def test_tiny_lora_train_step_on_the_card(cuda):
+    """One train step on the tiny bf16 model: the adapter gradients through
+    the kernels within cosine 0.999 and 1% in norm of those through the
+    plain versions (same dropout masks), flash launched once a SigLIP and
+    a Gemma layer and nothing else; the optimizer moves B."""
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    rows = [proc(text=[p], images=[im]) for p, im in zip(prompts[1:3], images[1:3])]
+    t = max(r["input_ids"].shape[1] for r in rows)
+    ids = torch.zeros((2, t), dtype=torch.int32)
+    valid = torch.tensor([r["input_ids"].shape[1] for r in rows], dtype=torch.int32)
+    for i, r in enumerate(rows):
+        ids[i, : valid[i]] = torch.from_numpy(r["input_ids"][0])
+    labels = torch.full_like(ids, -100)
+    n_img = model.cfg.vision_config.num_image_tokens
+    for i in range(2):
+        labels[i, n_img: valid[i]] = ids[i, n_img: valid[i]]
+    batch = {"input_ids": ids.to(cuda), "labels": labels.to(cuda), "valid_len": valid.to(cuda),
+             "pixel_values": torch.cat([torch.from_numpy(r["pixel_values"]) for r in rows]).to(cuda)}
+    lcfg = lora.LoraConfig(r=4, alpha=8, dropout=0.1)
+    ad = lora.init_lora(model.cfg, lcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    for mod in ad["layers"].values():
+        mod["b"].normal_(0.0, 0.05, generator=torch.Generator(device=cuda).manual_seed(2))
+
+    def grads(fns):
+        live = lora._map(lambda x: x.detach().requires_grad_(), ad)
+        loss = paligemma.loss_fn(model, batch["input_ids"], batch["pixel_values"], batch["labels"],
+                                 valid_len=batch["valid_len"], lora=live, lora_scale=lcfg.scale,
+                                 lora_dropout=lcfg.dropout, lora_generator=torch.Generator(device=cuda).manual_seed(3),
+                                 fns=fns)
+        return loss, torch.autograd.grad(loss, lora.adapter_leaves(live))
+
+    kernels.reset_launch_counts()
+    loss_k, gk = grads(kernels.KERNELS)
+    counts = {k: v for k, v in kernels.call_counts().items() if v}
+    layers = model.cfg.vision_config.num_hidden_layers + model.cfg.text_config.num_hidden_layers
+    assert counts == {"flash_attention": layers}
+    loss_p, gp = grads(PLAIN)
+    assert torch.isfinite(loss_k) and abs(float(loss_k - loss_p)) <= 0.01 * abs(float(loss_p))
+    cos, gap = _cos_and_gap(torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp]))
+    assert cos >= 0.999 and gap <= 0.01, (cos, gap)
+    opt = lora.default_optimizer(lr=1e-2, accum_steps=1)
+    step = lora.make_train_step(lcfg, opt)
+    b0 = ad["layers"]["q"]["b"].clone()
+    state = opt.init(ad)
+    _, ad, state = step(model, ad, state, batch, torch.Generator(device=cuda).manual_seed(3))
+    assert not torch.equal(b0, ad["layers"]["q"]["b"])
+
+
+def test_tiny_lora_engine_on_the_card(cuda):
+    """A lora_rank engine's captured slot graphs read the adapters each join
+    writes in place: a base request gives the base engine's tokens, an
+    adapted one its tokens alone beside the others, and differs from base."""
+    from paligemma_tpu_torch import lora
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    lcfg = lora.LoraConfig(r=2, alpha=4)
+    ad = lora.init_lora(model.cfg, lcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    for mod in ad["layers"].values():
+        mod["b"].normal_(0.0, 1.0, generator=torch.Generator(device=cuda).manual_seed(2))
+
+    def run(reqs, lora_rank=4):
+        eng = ContinuousBatcher(model, proc, n_slots=3, max_new_tokens=12, chunk=4, lora_rank=lora_rank)
+        if lora_rank:
+            eng.register_adapter("fin", ad, lcfg.scale)
+        eng.prepare()
+        n = len(eng.graph_log)
+        out = [eng.submit(prompts[i], images[i], adapter=a) for i, a in reqs]
+        eng.run()
+        eng.close()
+        assert len(eng.graph_log) == n and all(r.error is None for r in out)
+        return [r.tokens for r in out]
+
+    together = run([(0, "fin"), (1, None), (2, "fin")])
+    base = run([(0, None), (1, None), (2, None)], lora_rank=None)
+    assert together[1] == base[1]
+    assert together[0] != base[0] or together[2] != base[2]
+    assert run([(0, "fin"), (1, None), (2, None)])[0] == together[0]

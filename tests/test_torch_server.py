@@ -2,7 +2,8 @@
 health, batched, streaming and bad requests; continuous mode with
 concurrent mixed lengths and streams, join errors as 500 or an SSE error,
 ``/metrics``; ``Admission``; backpressure and deadlines; the ``--kv_window
-auto`` rule; the refusal of ``--adapter``; and ``build_server`` serving an
+auto`` rule; ``--adapter`` (a missing directory refused, a saved adapter
+served by name); and ``build_server`` serving an
 in-memory model whose answers equal the engine's."""
 import argparse
 import base64
@@ -133,7 +134,7 @@ def test_bad_requests(server):
     assert e.value.code == 404
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server, "/generate", {"prompt": "x", "image_b64": _b64img(1), "max_tokens": 4, "adapter": "fin"})
-    assert e.value.code == 400 and "LoRA" in e.value.read().decode()
+    assert e.value.code == 400 and "adapter requires the server to run with --continuous" in e.value.read().decode()
 
 
 def test_metrics_single_mode(server):
@@ -269,10 +270,68 @@ def test_kv_window_auto_resolution():
     assert srv._kv_window_enabled(args(kv_window="on", spec_k=0)) is True
 
 
-def test_adapter_and_lora_rank_are_refused(capsys):
+def test_adapter_and_lora_rank_are_refused(capsys, tmp_path):
+    """An --adapter directory without a saved adapter exits 2 before the
+    model loads."""
     assert srv.main(["--demo", "--only_cpu", "--continuous", "--adapter", "fin=/nonexistent"]) == 2
-    assert srv.main(["--demo", "--only_cpu", "--continuous", "--lora_rank", "4"]) == 2
-    assert "LoRA serving is not ported yet" in capsys.readouterr().err
+    assert srv.main(["--demo", "--only_cpu", "--continuous", "--lora_rank", "4", "--adapter",
+                     f"fin={tmp_path}"]) == 2
+    assert "no saved adapter in that directory" in capsys.readouterr().err
+
+
+def _saved_demo_adapter(path, seed=0):
+    """A rank-2 adapter with non-zero B for the demo model, saved by the
+    finetune's writer (alpha 4)."""
+    import torch
+
+    from inference_torch import load_for_cli
+    from paligemma_tpu_torch import lora
+
+    model, _ = load_for_cli(None, True, device="cpu")
+    lcfg = lora.LoraConfig(r=2, alpha=4, dropout=0.0)
+    ad = lora.init_lora(model.cfg, lcfg, torch.Generator().manual_seed(seed), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for mod in ad["layers"].values():
+        mod["b"] = torch.randn(mod["b"].shape, generator=gen)
+    lora.save_checkpoint_robust(ad, lcfg, str(path), step=0)
+    return ad, lcfg
+
+
+def test_continuous_server_serves_an_adapter(tmp_path):
+    """``--continuous --adapter fin=DIR``: /healthz lists the adapter, the
+    page has the selector, a request naming it answers with the tokens the
+    engine gives that adapter in-process, an unknown name is a 400."""
+    from inference_torch import load_for_cli
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+
+    ad, lcfg = _saved_demo_adapter(tmp_path / "fin")
+    proc, base = _start("--continuous", "--n_slots", "2", "--max_new_cap", "16", "--spec_k", "0",
+                        "--kv_window", "off", "--adapter", f"fin={tmp_path / 'fin'}")
+    try:
+        health = json.loads(urllib.request.urlopen(base + "/healthz").read())
+        assert health["adapters"] == ["fin"]
+        assert 'id="adapter"' in urllib.request.urlopen(base + "/").read().decode()
+        with _post(base, "/generate", {"prompt": "p0", "image_b64": _b64img(0), "max_tokens": 8,
+                                       "adapter": "fin"}) as r:
+            got = json.loads(r.read())["tokens"]
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(base, "/generate", {"prompt": "p0", "image_b64": _b64img(0), "max_tokens": 8, "adapter": "x"})
+        assert e.value.code == 400 and "unknown adapter 'x'; registered: ['fin']" in e.value.read().decode()
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+    model, processor = load_for_cli(None, True, device="cpu")
+    image = Image.open(io.BytesIO(base64.b64decode(_b64img(0)))).convert("RGB")
+    refs = []
+    for adapter in ("fin", None):
+        eng = ContinuousBatcher(model, processor, n_slots=2, max_new_tokens=16, chunk=32, lora_rank=2,
+                                prompt_budget=[model.cfg.vision_config.num_image_tokens + 64])
+        eng.register_adapter("fin", ad, lcfg.scale)
+        req = eng.submit("p0", image, 8, adapter=adapter)
+        eng.run()
+        eng.close()
+        refs.append(req.tokens)
+    assert got == refs[0] and refs[0] != refs[1]
 
 
 def test_build_server_serves_the_engines_tokens():

@@ -2,6 +2,7 @@
 """Device time of the PyTorch port's serving path, by kernel, on one CUDA card.
 
     python3 torch_profile.py [--out PATH]
+    python3 torch_profile.py --train [--out PATH]
 
 PaliGemma-3B-224 with seeded random weights made on the card and the first
 request of ``chip_smoke.py`` (its ``build_model`` and ``_request``). For each
@@ -26,6 +27,13 @@ arm's cache), after a warm-up:
   of a port kernel than its wrapper's launch count says were launched has
   lost records: the call is profiled again, up to ``TRIES`` times, and the
   arm's ``records`` entry keeps the tries and what the last trace lacked.
+
+``--train`` profiles a LoRA training micro-step instead (chip_smoke's
+phase 15 batch: B = 2, T = 320, r 8, alpha 16, dropout 0.1, B seeded
+non-zero; an accumulating call, no optimizer step): unprofiled host ms,
+then the forward (the loss) alone and the whole micro-step under the
+profiler: device ms by group and kernel, launches, the busy share, and
+the host's PyTorch op calls.
 
 Prints one summary line per arm and group, and the whole result as one JSON
 line (also written to ``--out`` when given). Needs a CUDA device; exits 2
@@ -113,9 +121,69 @@ def summarize(kernels, per: int):
     }
 
 
+def profile_train(torch, model, proc, cfg, smi):
+    """One LoRA micro-step (forward and backward, the accumulation only)
+    and its forward alone: host ms, device time by group, busy share."""
+    import chip_smoke
+    from paligemma_tpu_torch import lora
+    from paligemma_tpu_torch.models import paligemma
+
+    dev = torch.device("cuda")
+    batch = lora.batch_to(chip_smoke._lora_batch(torch, proc, cfg), dev)
+    lcfg = lora.LoraConfig(r=chip_smoke.LORA_R, alpha=chip_smoke.LORA_ALPHA, dropout=chip_smoke.LORA_DROPOUT)
+    ad = lora.init_lora(cfg, lcfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for mod in ad["layers"].values():
+        mod["b"].normal_(0.0, 0.01, generator=torch.Generator(device=dev).manual_seed(1))
+    opt = lora.AdapterOptimizer(accum_steps=10**9)  # accumulates only: the micro-step without its update
+    state = opt.init(ad)
+    step = lora.make_train_step(lcfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def micro(_=None):
+        nonlocal state
+        _, _, state = step(model, ad, state, batch, gen)
+
+    def forward(_=None):
+        live = lora._map(lambda t: t.detach().requires_grad_(), ad)
+        paligemma.loss_fn(model, batch["input_ids"], batch["pixel_values"], batch["labels"],
+                          valid_len=batch["valid_len"], lora=live, lora_scale=lcfg.scale,
+                          lora_dropout=lcfg.dropout, lora_generator=gen)
+
+    result = {"device": smi, "shape": f"B=2 T={chip_smoke.LORA_VALID[0]} valid {list(chip_smoke.LORA_VALID)}"}
+    for name, fn in (("forward", forward), ("micro_step", micro)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        hosts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::"))
+        rec = summarize(device_kernels(prof), 1)
+        host = sorted(hosts)[len(hosts) // 2]
+        rec.update(host_ms=hosts, median_host_ms=host, busy_share_of_host_ms=rec["device_ms"] / host,
+                   aten_op_calls=ops)
+        result[name] = rec
+        groups = " ".join(f"{k} {v['device_ms']:.4f} ({v['launches']:.0f})" for k, v in rec["groups"].items())
+        print(f"[train {name}] host {host:.3f} ms (of {[round(h, 2) for h in hosts]}) | device {rec['device_ms']:.4f}"
+              f" ms, {rec['launches']:.0f} launches, busy {rec['busy_share_of_host_ms']:.1%}, {ops} aten op calls"
+              f" | {groups}", flush=True)
+        for k in rec["top_kernels"][:8]:
+            print(f"[train {name}]   {k['device_ms']:.4f} ms x{k['launches']:.0f} {k['name'][:100]}", flush=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON result to this file")
+    ap.add_argument("--train", action="store_true", help="profile a LoRA training micro-step instead")
     args = ap.parse_args()
 
     import torch
@@ -131,7 +199,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    _, _, proc, model = chip_smoke.build_model(torch)
+    cfg, _, proc, model = chip_smoke.build_model(torch)
+    if args.train:
+        result = profile_train(torch, model, proc, cfg, smi)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(result, indent=1))
+        print(json.dumps(result), flush=True)
+        return 0
     ids, pix = chip_smoke._request(torch, proc, 0)
     n = STEPS
 
