@@ -140,7 +140,12 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     chunk; sampled, one seed one stream and temperature 0 the greedy one.
 
 14. Continuous serving (after phase 12; ``phase_continuous``; the final
-    norm redrawn as in phase 7): twelve requests (phase 4's three and nine
+    norm redrawn as in phase 7). First, one request's join prefill
+    (``serving.batched_prefill``) at group batch 1 and at group batch 32,
+    the request at row 0 in both: row 0 compared op by op
+    (``utils/rowdiff``, every ATen op and every kernel call), the first op
+    at which it parts printed; gated: that op is not a kernel of the port.
+    Then twelve requests (phase 4's three and nine
     more over two prompt buckets, 8-48 new tokens) through 4-slot engines
     with chunk 8: bf16 plain, int8 with the int8 KV cache
     (``kv_quant``), bf16 speculative (k = 8, adaptive, the cache window)
@@ -174,7 +179,18 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     micro-step's host and device-event ms, the optimizer step's, peak MiB,
     the flash forward / backward / plain / SDPA forward + backward ms
     beside the bounds; the adapter saved with ``save_checkpoint_robust``
-    and read back bit for bit.
+    and read back bit for bit. The eager run is ``lora.train_step``; then
+    ``lora.make_train_step``'s compiled step (CUDA graph replays) runs the
+    same 8 micro-steps from the same adapter, optimizer state and dropout
+    generator state. Gated: each loss, the final adapter, the optimizer
+    state and the generator bit for bit the eager run's; one capture a
+    flavour (accumulate, apply), at its first micro-step, none after; the
+    same launches. Reported: capture ms and pool MiB a flavour, peak MiB,
+    the compiled micro-step's host and device-event ms, both steps' kernel
+    ms and busy share under torch.profiler. Then ``lora.make_eval_loss``
+    (the finetune CLI's ``--eval_only`` loss): the first call and a replay
+    bit for bit the eager ``no_grad`` loss; graph and eager host and
+    kernel ms.
 16. LoRA serving (``phase_lora_serving``; the final norm redrawn as in
     phase 7): a lora_rank 8 engine (4 slots, chunk 8) in bf16 and int8
     serves a base request, the trained adapter, a seeded rank-4 adapter
@@ -205,6 +221,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -328,12 +345,17 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def phase_device(torch):
-    smi = subprocess.run(
+@functools.lru_cache(maxsize=None)
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    log(smi.splitlines()[0])
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_device(torch):
+    log(_smi())
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | {name} x{count}")
     return name, count
@@ -2583,13 +2605,67 @@ def phase_continuous(torch, model, proc, tok, cfg, main_counts):
         return _phase_continuous(torch, model, proc, tok, cfg, main_counts)
 
 
+ISOLATION_GROUP = 32  # the group batch a join prefill's row 0 is held to batch 1 at
+
+
+def _join_isolation(torch, model, proc, cfg):
+    """One request's join prefill (``serving.batched_prefill``, what
+    ``continuous._JoinPrefill`` captures) at group batch 1 and at
+    ISOLATION_GROUP from the same weights, the request at row 0 in both and
+    the identity traffic's requests in the other rows; row 0 compared op by
+    op, every ATen operation and every kernel call (``utils/rowdiff``).
+    Prints the first op that parts it and fails if that op is a kernel of
+    the port."""
+    from paligemma_tpu_torch import serving
+    from paligemma_tpu_torch.models import gemma
+    from paligemma_tpu_torch.utils import rowdiff
+
+    dev = torch.device("cuda")
+    rows = [_inputs_of(torch, model, proc, p, im) for p, im, _ in _cont_traffic()]
+    bucket = max(ids.shape[1] for ids, _ in rows)
+    g = ISOLATION_GROUP
+    size = cfg.vision_config.image_size
+    ids = torch.zeros((g, bucket), dtype=torch.int32, device=dev)
+    pix = torch.zeros((g, 3, size, size), dtype=rows[0][1].dtype, device=dev)
+    valid = torch.zeros(g, dtype=torch.int32, device=dev)
+    for r in range(g):
+        i, p = rows[r % len(rows)]
+        ids[r, : i.shape[1]], pix[r], valid[r] = i[0], p[0], i.shape[1]
+
+    def run(fns, b):
+        cache = gemma.init_cache(cfg.text_config, b, bucket, gemma.activation_dtype(model.llm), dev)
+        return serving.batched_prefill(model, ids[:b], pix[:b], valid[:b], cache, fns)[0]
+
+    t0 = time.perf_counter()
+    diff = rowdiff.first_row_difference(run, 1, g, labels=rowdiff.model_labels(model))
+    torch.cuda.synchronize()
+    tag = "[continuous isolation]"
+    head = (f"{tag} request 0's join prefill (valid {int(valid[0])}, bucket {bucket}) at group batch 1 and "
+            f"{g}, row 0 op by op ({time.perf_counter() - t0:.1f} s):")
+    if diff is None:
+        log(f"{head} every op's row 0 is the same bits")
+    else:
+        log(f"{head} first op whose row 0 differs: #{diff['index']} {diff['op']} in {diff['where']} (inputs "
+            f"{diff['inputs']}), "
+            + (diff["sequence"] if "sequence" in diff else
+               f"output {diff['shape']}, {diff['differing']} of {diff['elements']} elements differ, max abs err "
+               f"{diff['max_abs_err']:.3e}")
+            + f" ({diff['compared'] - 1} ops before it agree)")
+    check(diff is None or not diff["op"].startswith("fns."),
+          f"{tag} a kernel of the port parts row 0 across group batches: {diff}")
+    return diff
+
+
 def _phase_continuous(torch, model, proc, tok, cfg, main_counts):
     from paligemma_tpu_torch import generation, quantization
     from paligemma_tpu_torch.continuous import ContinuousBatcher
 
     n_img = cfg.vision_config.num_image_tokens
     traffic = _cont_traffic()
-    record = {"identity": [], "throughput": [], "http": None}
+    record = {"identity": [], "throughput": [], "http": None,
+              "isolation": _join_isolation(torch, model, proc, cfg)}
+    gc.collect()
+    torch.cuda.empty_cache()
     int8 = quantization.quantize_params(model, llm_only=True, mode="int8")
     engines = [
         ("bf16 plain", model, {}, None, ()),
@@ -3130,33 +3206,48 @@ def phase_lora_train(torch, model, proc, cfg, main_counts, out_dir):
     ad = lora.init_lora(cfg, lcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     opt = lora.default_optimizer(lr=LORA_LR, accum_steps=LORA_ACCUM)
     state = opt.init(ad)
-    step = lora.make_train_step(lcfg, opt)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    losses, host_ms, dev_ms = [], [], []
-    for i in range(LORA_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        loss, ad, state = step(model, ad, state, batch, gen)
-        end.record()
+    # The compiled run starts from these copies of the eager run's start.
+    start_ad, start_state, start_gen = lora._map(lambda x: x.clone(), ad), copy.deepcopy(state), gen.get_state()
+
+    def eager(model, ad, state, batch, gen):
+        return lora.train_step(model, ad, state, batch, gen, lcfg, opt)
+
+    def run_steps(step, ad, state, gen):
+        """LORA_STEPS micro-steps: losses, host and device-event ms, the
+        captures each made, launches, peak MiB, the final adapter and state."""
         torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        dev_ms.append(start.elapsed_time(end))
-        losses.append(float(loss))
-    counts = {k: v for k, v in kernels.call_counts().items() if v}
-    peak = torch.cuda.max_memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, host_ms, dev_ms, captured = [], [], [], []
+        for i in range(LORA_STEPS):
+            before = len(getattr(step, "log", ()))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss, ad, state = step(model, ad, state, batch, gen)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            captured.append(len(getattr(step, "log", ())) - before)
+        counts = {k: v for k, v in kernels.call_counts().items() if v}
+        return (losses, host_ms, dev_ms, captured, counts, torch.cuda.max_memory_allocated() / 2**20,
+                ad, state)
+
+    losses, host_ms, dev_ms, _, counts, peak, ad, state = run_steps(eager, ad, state, gen)
     n_layers = cfg.vision_config.num_hidden_layers + cfg.text_config.num_hidden_layers
     flash["launches_per_micro_step"] = counts.get("flash_attention", 0) / LORA_STEPS
     main_counts.update(counts)
-    log(f"{tag} {LORA_STEPS} micro-steps, accumulation {LORA_ACCUM}, lr {LORA_LR}, r {LORA_R} alpha {LORA_ALPHA} "
-        f"dropout {LORA_DROPOUT}, B=2 T={LORA_VALID[0]} valid {list(LORA_VALID)}: losses {losses} | launches "
-        f"{counts} ({n_layers} flash a micro-step expected) | micro-step host ms {[round(x, 2) for x in host_ms]} "
-        f"| device-event ms {[round(x, 2) for x in dev_ms]} | peak {peak:.1f} MiB")
+    log(f"{tag} {LORA_STEPS} eager micro-steps (lora.train_step), accumulation {LORA_ACCUM}, lr {LORA_LR}, r "
+        f"{LORA_R} alpha {LORA_ALPHA} dropout {LORA_DROPOUT}, B=2 T={LORA_VALID[0]} valid {list(LORA_VALID)}: "
+        f"losses {losses} | launches {counts} ({n_layers} flash a micro-step expected) | micro-step host ms "
+        f"{[round(x, 2) for x in host_ms]} | device-event ms {[round(x, 2) for x in dev_ms]} | peak {peak:.1f} MiB")
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], f"{tag} the loss did not fall")
     check(counts == {"flash_attention": LORA_STEPS * n_layers}, f"{tag} launches {counts} are not the code's")
+    compiled = _compiled_training(torch, model, batch, lcfg, opt, run_steps, eager, n_layers,
+                                  (start_ad, start_state, start_gen), (losses, ad, state, gen), main_counts)
 
     # The optimizer step alone (the k-th call), on copies.
     g = [torch.randn_like(p) for p in lora.adapter_leaves(ad)]
@@ -3183,9 +3274,106 @@ def phase_lora_train(torch, model, proc, cfg, main_counts, out_dir):
         f"({(time.perf_counter() - t0) * 1e3:.1f} ms)")
     check(fmt == "safetensors" and same, f"{tag} the saved adapter does not read back")
     steady = host_ms[LORA_ACCUM:]
+    compiled["eval"] = _compiled_eval(torch, model, batch, lcfg, ad)
     return ad, lcfg, {"losses": losses, "launches": counts, "host_ms": host_ms, "device_event_ms": dev_ms,
                       "steady_host_ms": sum(steady) / len(steady), "optimizer_ms": opt_ms, "peak_mib": peak,
-                      "grad_cos": cos, "grad_norm_gap": gap, "flash": flash, "logits": logits_rec}
+                      "grad_cos": cos, "grad_norm_gap": gap, "flash": flash, "logits": logits_rec,
+                      "compiled": compiled}
+
+
+def _compiled_training(torch, model, batch, lcfg, opt, run_steps, eager, n_layers, start, eager_end,
+                       main_counts):
+    """Phase 15's compiled step (``lora.make_train_step``: CUDA graph
+    replays) over the eager run's LORA_STEPS micro-steps from the same
+    adapter, optimizer state and dropout-generator state: each loss, the
+    final adapter, the optimizer state and the generator bit for bit the
+    eager run's; one capture a flavour, at its first micro-step; then
+    profiled beside the eager step (device ms, busy share)."""
+    import copy
+
+    from paligemma_tpu_torch import lora
+
+    dev = torch.device("cuda")
+    tag = "[lora compiled]"
+    losses, ad, state, gen = eager_end
+    cgen = torch.Generator(device=dev)
+    cgen.set_state(start[2])
+    step = lora.make_train_step(lcfg, opt)
+    closses, host_ms, dev_ms, captured, counts, peak, cad, cstate = run_steps(step, start[0], start[1], cgen)
+    main_counts.update(counts)
+    same_ad = all(torch.equal(a, b) for a, b in zip(lora.adapter_leaves(ad), lora.adapter_leaves(cad)))
+    same_state = all(torch.equal(a, b) for k in ("acc", "mu", "nu") for a, b in zip(state[k], cstate[k]))
+    same_gen = torch.equal(gen.get_state(), cgen.get_state())
+    flavours = [e["key"][1] for e in step.log]
+    steady = [i for i, c in enumerate(captured) if not c]
+    host = sum(host_ms[i] for i in steady) / len(steady)
+    event = sum(dev_ms[i] for i in steady) / len(steady)
+    log(f"{tag} the same {LORA_STEPS} micro-steps as CUDA graph replays from the same start: losses {closses} | "
+        f"bit for bit the eager run's: losses {closses == losses}, adapter {same_ad}, optimizer state "
+        f"{same_state}, dropout generator {same_gen} | captures per micro-step {captured} (flavours "
+        f"{['apply' if f else 'accumulate' for f in flavours]}, ms {[round(e['ms'], 1) for e in step.log]}, pool "
+        f"MiB {[round(e['mib'], 1) for e in step.log]}) | launches {counts} | micro-step host ms "
+        f"{[round(x, 2) for x in host_ms]} | device-event ms {[round(x, 2) for x in dev_ms]} | peak {peak:.1f} MiB")
+    check(closses == losses and same_ad and same_state and same_gen,
+          f"{tag} the compiled micro-steps are not the eager run's bits")
+    check(captured == [1] * LORA_ACCUM + [0] * (LORA_STEPS - LORA_ACCUM) and flavours == [False] * (LORA_ACCUM - 1)
+          + [True], f"{tag} captures {captured} (flavours {flavours}): one a flavour, at its first micro-step")
+    check(counts == {"flash_attention": LORA_STEPS * n_layers}, f"{tag} launches {counts} are not the code's")
+
+    # Device time and busy share, both steps over the same calls (both
+    # flavours in turn), on copies that nothing reads after.
+    prof = {}
+    for name, fn in (("eager", eager), ("compiled", step)):
+        if name == "compiled":
+            ad_p, box = cad, [cstate]
+        else:
+            ad_p, box = lora._map(lambda x: x.clone(), ad), [copy.deepcopy(state)]
+
+        def one(fn=fn, ad_p=ad_p, box=box):
+            box[0] = fn(model, ad_p, box[0], batch, cgen)[2]
+
+        device, host_p = _device_ms(torch, one, iters=2 * LORA_ACCUM)
+        prof[name] = {"device_ms": device, "host_ms": host_p, "busy_share": device / host_p}
+    log(f"{tag} profiled micro-step (mean of the two flavours), eager: host {prof['eager']['host_ms']:.3f} ms, "
+        f"kernels {prof['eager']['device_ms']:.3f} ms, busy {prof['eager']['busy_share']:.1%} | compiled: host "
+        f"{prof['compiled']['host_ms']:.3f} ms, kernels {prof['compiled']['device_ms']:.3f} ms, busy "
+        f"{prof['compiled']['busy_share']:.1%} | steady compiled micro-step host {host:.3f} ms, device-event "
+        f"{event:.3f} ms | {_smi()}")
+    return {"losses": closses, "bit_for_bit": {"losses": closses == losses, "adapter": same_ad,
+                                               "optimizer_state": same_state, "generator": same_gen},
+            "captures_per_micro_step": captured, "captures": [{"apply": e["key"][1], "ms": e["ms"], "mib": e["mib"]}
+                                                              for e in step.log],
+            "pool_mib": sum(e["mib"] for e in step.log), "peak_mib": peak, "launches": counts,
+            "host_ms": host_ms, "device_event_ms": dev_ms, "steady_host_ms": host, "steady_device_event_ms": event,
+            "profiled": prof, "device": _smi()}
+
+
+def _compiled_eval(torch, model, batch, lcfg, ad):
+    """The finetune CLI's eval loss (``lora.make_eval_loss``): the first
+    call (the capture's warm-up) and a replay bit for bit the eager
+    ``no_grad`` ``loss_fn`` on the same batch and adapter; host and kernel ms
+    of both."""
+    from paligemma_tpu_torch import lora
+
+    tag = "[lora eval]"
+    fn = lora.make_eval_loss(lcfg.scale)
+    ref = lora.eval_loss(model, ad, batch, lcfg.scale)
+    t0 = time.perf_counter()
+    first = fn(model, ad, batch).clone()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    replay = fn(model, ad, batch).clone()
+    same = torch.equal(first, ref) and torch.equal(replay, ref)
+    graph_dev, graph_host = _device_ms(torch, lambda: fn(model, ad, batch))
+    eager_dev, eager_host = _device_ms(torch, lambda: lora.eval_loss(model, ad, batch, lcfg.scale))
+    log(f"{tag} eval loss B=2 T={LORA_VALID[0]} through the adapter: eager {float(ref):.6f}, first call "
+        f"{float(first):.6f}, replay {float(replay):.6f}, bit for bit: {same} | first call (eager warm-up + "
+        f"capture) {capture_ms:.1f} ms | graph: host {graph_host:.3f} ms, kernels {graph_dev:.3f} ms | eager: host "
+        f"{eager_host:.3f} ms, kernels {eager_dev:.3f} ms | {_smi()}")
+    check(same, f"{tag} the compiled eval loss is not the eager loss's bits")
+    return {"loss": float(ref), "bit_for_bit": same, "first_call_ms": capture_ms, "graph_host_ms": graph_host,
+            "graph_device_ms": graph_dev, "eager_host_ms": eager_host, "eager_device_ms": eager_dev,
+            "device": _smi()}
 
 
 def phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts):

@@ -11,7 +11,10 @@ tokenizer), the parquet dataset, then ``lora.train`` (AdamW over the
 adapters, accumulation, clipping, periodic robust checkpoints). With
 ``--eval_only``: the exact token-weighted mean loss and the perplexity over
 the whole dataset, through ``--adapter_dir``'s adapter when given (the tail
-batch padded with repeated samples whose labels are all ignored).
+batch padded with repeated samples whose labels are all ignored). On the
+card the train step and the eval loss replay CUDA graphs
+(``lora.make_train_step``, ``lora.make_eval_loss``); on the CPU they run
+eagerly.
 
 Runs on the CUDA card; ``--only_cpu=True`` is the only way onto the CPU.
 ``--max_memory_gb`` is accepted and not used.
@@ -56,17 +59,17 @@ def parser() -> argparse.ArgumentParser:
 
 def evaluate(model, dataset, batch_size: int, adapter=None, scale: float = 1.0):
     """(mean loss over every valid label token, tokens, batches): each
-    batch's loss weighted by its valid shifted labels (``loss_fn``'s
-    denominator); the tail batch is padded with copies of its first sample
-    whose labels are all ``ignore_index``."""
+    batch's loss (``lora.make_eval_loss``: a CUDA graph on the card, one for
+    every batch since all have one shape) weighted by its valid shifted
+    labels (``loss_fn``'s denominator); the tail batch is padded with copies
+    of its first sample whose labels are all ``ignore_index``."""
     import numpy as np
-    import torch
 
-    from paligemma_tpu_torch.lora import batch_to
-    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.lora import batch_to, make_eval_loss
 
     ignore = model.cfg.ignore_index
     dev = model.llm.final_norm.weight.device
+    loss_of = make_eval_loss(scale)
     n = len(dataset)
     total_nll, total_tok, n_batches = 0.0, 0, 0
     for start in range(0, n, batch_size):
@@ -80,11 +83,7 @@ def evaluate(model, dataset, batch_size: int, adapter=None, scale: float = 1.0):
         ntok = int((batch["labels"][:, 1:] != ignore).sum())
         if ntok == 0:
             continue
-        tb = batch_to(batch, dev)
-        with torch.no_grad():
-            loss = paligemma.loss_fn(model, tb["input_ids"], tb["pixel_values"], tb["labels"],
-                                     valid_len=tb["valid_len"], lora=adapter, lora_scale=scale)
-        total_nll += float(loss) * ntok
+        total_nll += float(loss_of(model, adapter, batch_to(batch, dev))) * ntok
         total_tok += ntok
         n_batches += 1
     return (total_nll / total_tok if total_tok else None), total_tok, n_batches

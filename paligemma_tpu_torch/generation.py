@@ -152,7 +152,8 @@ def _buffers(cache: KVCache) -> tuple:
 
 class _Captured:
     """What the graph runners share (the prefill and decode runners here,
-    batched serving's step, the ablation's no-cache step): a function on one
+    batched serving's step, the ablation's no-cache step, the continuous
+    engine's steps, the LoRA train step and eval loss): a function on one
     cache's buffers (or on buffers of its own, ``cache`` None), captured on
     a CUDA device as a CUDA graph, and the counts each replay adds. Holds no
     reference to the cache, and the model only weakly, to tell whether it is

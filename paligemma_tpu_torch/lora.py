@@ -7,11 +7,16 @@
   ``{"layers": {"q"|"k"|"v": {"a": (L, D, r), "b": (L, r, out)}}}``, separate
   from the frozen base model; ``models/gemma.py`` applies them
   (``lora_delta``), and ``merge_lora`` folds them into the base weights.
-- The train step (``make_train_step``) is ``paligemma.loss_fn`` through the
+- The train step (``train_step``) is ``paligemma.loss_fn`` through the
   adapters, ``torch.autograd.grad`` for the adapters only, and one call of
   ``AdapterOptimizer``: the reference's ``optax.MultiSteps(chain(
   clip_by_global_norm, adamw))`` (accumulation over k micro-steps, one
-  clipped AdamW step every k-th call).
+  clipped AdamW step every k-th call). None of it reads the device, so
+  ``make_train_step`` returns it compiled, as the reference returns
+  ``jax.jit(step)``: on the card each micro-step is the replay of a CUDA
+  graph (one per batch shape and flavour: accumulate, or accumulate and
+  apply), on the CPU the eager function. ``make_eval_loss`` is the
+  finetune CLI's eval loss the same way (one graph per batch shape).
 - Checkpoints: ``save_checkpoint_robust`` writes the adapter as
   safetensors (the port's own writer, ``utils/checkpoint.save_file``) with
   ``adapter_config.json``, else npz, else a pickle of numpy arrays, and
@@ -37,10 +42,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from paligemma_tpu_torch import generation
 from paligemma_tpu_torch.config import PaliGemmaConfig
 from paligemma_tpu_torch.models import paligemma
 from paligemma_tpu_torch.models.gemma import LORA_TARGETS
 from paligemma_tpu_torch.models.paligemma import PaliGemma
+from paligemma_tpu_torch.ops.kernels import KERNELS
 from paligemma_tpu_torch.utils import checkpoint
 
 Adapter = Dict[str, Any]
@@ -133,12 +140,28 @@ class AdapterOptimizer:
     clip_by_global_norm(max_grad_norm), adamw(lr, weight_decay=wd)),
     every_k_schedule=accum_steps)``, on a list of tensors, in place.
 
-    Each call folds the micro-step's gradients into their running mean;
-    every ``accum_steps``-th call clips the mean's global norm (``g / norm *
-    max_norm`` when ``norm >= max_norm``, no epsilon), takes one AdamW step
-    (b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments, decoupled weight
-    decay) and zeroes the mean; the other calls leave the tensors as they
-    are. The state is a dict of tensors and ints (``torch.save`` keeps it).
+    Each call folds the micro-step's gradients into their running mean,
+    ``acc += (g - acc) / (n + 1)``; every ``accum_steps``-th call clips the
+    mean's global norm, takes one AdamW step (b1 0.9, b2 0.999, eps 1e-8,
+    bias-corrected moments, decoupled weight decay) and zeroes the mean; the
+    other calls leave the tensors as they are. The state is a dict of
+    tensors and host ints (``torch.save`` keeps it).
+
+    A call reads nothing back from the device, so a CUDA graph can capture
+    it (``make_train_step``):
+
+    - the clip is a select, ``where(norm < max_norm, g, g / norm *
+      max_norm)`` (no epsilon): the bits of either branch, with no branch
+      on the norm;
+    - the numbers that change from call to call, the divisor ``n + 1`` and
+      the bias corrections ``1 - b1**count`` and ``1 - b2**count``, are read
+      from a (3,) fp32 device buffer (``scalars``) that ``set_scalars``
+      fills from the host before the device work (``apply``). A graph
+      captures ``apply`` only, and each replay is preceded by
+      ``set_scalars``. Each is a division by the fp32 tensor, never a
+      product with a reciprocal;
+    - whether a call takes the AdamW step is decided on the host, from the
+      state's ``mini_step``.
     """
 
     def __init__(self, lr: float = 1e-4, accum_steps: int = 16, max_grad_norm: float = 1.0,
@@ -147,29 +170,54 @@ class AdapterOptimizer:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.lr, self.k, self.max_norm, self.wd = lr, accum_steps, max_grad_norm, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
+        self._scalars: Dict[torch.device, torch.Tensor] = {}
 
     def init(self, lora: Adapter) -> dict:
         leaves = adapter_leaves(lora)
         zeros = lambda: [torch.zeros_like(p) for p in leaves]  # noqa: E731
         return {"mini_step": 0, "count": 0, "acc": zeros(), "mu": zeros(), "nu": zeros()}
 
+    def applies(self, state: dict) -> bool:
+        """Whether the next call on ``state`` takes the AdamW step."""
+        return state["mini_step"] + 1 >= self.k
+
+    def scalars(self, device) -> torch.Tensor:
+        """The (3,) fp32 buffer on ``device`` that ``apply`` reads: ``n +
+        1``, ``1 - b1**count``, ``1 - b2**count``."""
+        dev = torch.device(device)
+        if dev not in self._scalars:
+            self._scalars[dev] = torch.zeros(3, dtype=torch.float32, device=dev)
+        return self._scalars[dev]
+
+    def set_scalars(self, state: dict, device) -> None:
+        """Fill ``scalars(device)`` for the next call on ``state``, each value
+        the fp32 rounding of its Python number."""
+        n, count = state["mini_step"], state["count"] + 1
+        buf = self.scalars(device)
+        for i, x in enumerate((n + 1, 1.0 - self.b1**count, 1.0 - self.b2**count)):
+            buf[i].fill_(x)
+
+    def advance(self, state: dict) -> dict:
+        """The state after one call (its tensors change in place)."""
+        if self.applies(state):
+            return {**state, "mini_step": 0, "count": state["count"] + 1}
+        return {**state, "mini_step": state["mini_step"] + 1}
+
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor], state: dict, lora: Adapter) -> dict:
-        """One micro-step: ``grads`` in ``adapter_leaves`` order; updates
-        the adapter in place on every k-th call; returns the state."""
-        n = state["mini_step"]
+    def apply(self, grads: Sequence[torch.Tensor], state: dict, lora: Adapter) -> None:
+        """The device work of one call, on the numbers ``set_scalars``
+        wrote: fold ``grads`` (in ``adapter_leaves`` order) into the mean
+        and, on the k-th call, clip, step the adapter and zero the mean."""
+        n1, c1, c2 = self.scalars(state["acc"][0].device)
         for acc, g in zip(state["acc"], grads):
-            acc.add_((g - acc) / (n + 1))
-        if n + 1 < self.k:
-            return {**state, "mini_step": n + 1}
+            acc.add_((g - acc) / n1)
+        if not self.applies(state):
+            return
         acc = state["acc"]
         norm = torch.sqrt(sum((g * g).sum() for g in acc))
-        clip = not bool(norm < self.max_norm)
-        count = state["count"] + 1
-        c1, c2 = 1.0 - self.b1**count, 1.0 - self.b2**count
+        keep = norm < self.max_norm
         for p, g, mu, nu in zip(adapter_leaves(lora), acc, state["mu"], state["nu"]):
-            if clip:
-                g = (g / norm) * self.max_norm
+            g = torch.where(keep, g, (g / norm) * self.max_norm)
             mu.mul_(self.b1).add_((1.0 - self.b1) * g)
             nu.mul_(self.b2).add_((1.0 - self.b2) * (g * g))
             u = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
@@ -178,7 +226,13 @@ class AdapterOptimizer:
             p.add_(-self.lr * u)
         for g in acc:
             g.zero_()
-        return {**state, "mini_step": 0, "count": count}
+
+    def update(self, grads: Sequence[torch.Tensor], state: dict, lora: Adapter) -> dict:
+        """One call, eagerly: ``set_scalars``, then ``apply``; returns the
+        state after it."""
+        self.set_scalars(state, state["acc"][0].device)
+        self.apply(grads, state, lora)
+        return self.advance(state)
 
 
 def default_optimizer(lr: float = 1e-4, accum_steps: int = 16, max_grad_norm: float = 1.0,
@@ -187,28 +241,235 @@ def default_optimizer(lr: float = 1e-4, accum_steps: int = 16, max_grad_norm: fl
     return AdapterOptimizer(lr, accum_steps, max_grad_norm, weight_decay)
 
 
-def make_train_step(lcfg: LoraConfig, optimizer: AdapterOptimizer, train: bool = True) -> Callable:
-    """``step(model, lora, opt_state, batch, generator) -> (loss, lora,
-    opt_state)``: the shifted cross-entropy through the adapters (dropout
-    from ``generator`` when ``train`` and ``lcfg.dropout`` > 0), its
-    gradient for the adapters only, one optimizer call (the adapter changes
-    in place). ``batch``: tensors on the model's device, ``input_ids``,
+def _step_on_device(model: PaliGemma, lora: Adapter, opt_state: dict, batch: dict,
+                    generator: Optional[torch.Generator], lcfg: LoraConfig, optimizer: AdapterOptimizer,
+                    train: bool) -> torch.Tensor:
+    """What a graph of the step captures: the loss through the adapters,
+    its gradient for the adapters only, ``optimizer.apply``. Returns the
+    detached loss."""
+    live = _map(lambda t: t.detach().requires_grad_(), lora)  # shares lora's storage
+    use_dropout = train and lcfg.dropout > 0
+    loss = paligemma.loss_fn(
+        model, batch["input_ids"], batch["pixel_values"], batch["labels"],
+        valid_len=batch.get("valid_len"), lora=live, lora_scale=lcfg.scale,
+        lora_dropout=lcfg.dropout if train else 0.0,
+        lora_generator=generator if use_dropout else None)
+    grads = torch.autograd.grad(loss, adapter_leaves(live))
+    optimizer.apply(grads, opt_state, lora)
+    return loss.detach()
+
+
+def train_step(model: PaliGemma, lora: Adapter, opt_state: dict, batch: dict,
+               generator: Optional[torch.Generator], lcfg: LoraConfig, optimizer: AdapterOptimizer,
+               train: bool = True):
+    """One micro-step, eagerly: (loss, lora, opt_state). The shifted
+    cross-entropy through the adapters (dropout from ``generator`` when
+    ``train`` and ``lcfg.dropout`` > 0), its gradient for the adapters
+    only, one optimizer call (the adapter and the state's tensors change in
+    place). ``batch``: tensors on the model's device, ``input_ids``,
     ``pixel_values``, ``labels`` and optionally ``valid_len``."""
+    optimizer.set_scalars(opt_state, batch["input_ids"].device)
+    loss = _step_on_device(model, lora, opt_state, batch, generator, lcfg, optimizer, train)
+    return loss, lora, optimizer.advance(opt_state)
 
-    def step(model: PaliGemma, lora: Adapter, opt_state: dict, batch: dict,
-             generator: Optional[torch.Generator] = None):
-        live = _map(lambda t: t.detach().requires_grad_(), lora)  # shares lora's storage
-        use_dropout = train and lcfg.dropout > 0
-        loss = paligemma.loss_fn(
-            model, batch["input_ids"], batch["pixel_values"], batch["labels"],
-            valid_len=batch.get("valid_len"), lora=live, lora_scale=lcfg.scale,
-            lora_dropout=lcfg.dropout if train else 0.0,
-            lora_generator=generator if use_dropout else None)
-        grads = torch.autograd.grad(loss, adapter_leaves(live))
-        opt_state = optimizer.update(grads, opt_state, lora)
-        return loss.detach(), lora, opt_state
 
-    return step
+_BATCH_KEYS = ("input_ids", "pixel_values", "labels", "valid_len")
+
+
+def _batch_key(batch: dict) -> tuple:
+    return tuple((k, tuple(batch[k].shape), batch[k].dtype) for k in _BATCH_KEYS if k in batch)
+
+
+def _ptrs(tensors) -> tuple:
+    return tuple(t.data_ptr() for t in tensors)
+
+
+def _state_tensors(opt_state: dict) -> List[torch.Tensor]:
+    return [t for k in ("acc", "mu", "nu") for t in opt_state[k]]
+
+
+class _Inputs:
+    """Static copies of one batch shape's tensors, which every graph of
+    that shape reads."""
+
+    def __init__(self, batch: dict):
+        self.batch = {k: batch[k].clone(memory_format=torch.contiguous_format)
+                      for k in _BATCH_KEYS if k in batch}
+
+    def fill(self, batch: dict) -> dict:
+        for k, t in self.batch.items():
+            t.copy_(batch[k])
+        return self.batch
+
+
+class _StepGraph(generation._Captured):
+    """One flavour of the micro-step for one batch shape, captured on the
+    adapter's and the optimizer state's tensors, the shape's static inputs
+    and the dropout generator (None: no dropout).
+
+    The capture's warm-up is a whole micro-step on a side stream (PyTorch's
+    rule for a capture with a backward). The adapter, the state's tensors
+    and the generator are put back after it, so every answer is a replay
+    and a capture that fails leaves them as they were."""
+
+    def __init__(self, model: PaliGemma, lora: Adapter, opt_state: dict,
+                 generator: Optional[torch.Generator]):
+        super().__init__(model, None, KERNELS)
+        self.tensors = adapter_leaves(lora) + _state_tensors(opt_state)
+        self.ptrs, self.generator = _ptrs(self.tensors), generator
+        self.loss, self.mib = None, 0.0
+
+    def serves(self, model: PaliGemma, lora: Adapter, opt_state: dict,
+               generator: Optional[torch.Generator]) -> bool:
+        return (self.model_ref() is model and self.generator is generator
+                and self.ptrs == _ptrs(adapter_leaves(lora) + _state_tensors(opt_state)))
+
+    def capture(self, run: Callable[[], torch.Tensor], dev: torch.device, pool) -> None:
+        saved = [t.clone() for t in self.tensors]
+        gen_state = None if self.generator is None else self.generator.get_state()
+
+        def restore():
+            for t, s in zip(self.tensors, saved):
+                t.copy_(s)
+            if gen_state is not None:
+                self.generator.set_state(gen_state)
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # as the capture does on entry
+        before = torch.cuda.memory_reserved(dev)
+        _, self.loss = self._capture(dev, run, restore, self.generator, pool=pool)
+        torch.cuda.synchronize(dev)
+        self.mib = (torch.cuda.memory_reserved(dev) - before) / 2**20
+
+
+class TrainStep:
+    """``make_train_step``'s result, the counterpart of the reference's
+    ``jax.jit(step)``: ``step(model, lora, opt_state, batch, generator) ->
+    (loss, lora, opt_state)``, ``train_step``'s arithmetic.
+
+    - On a CPU batch it is ``train_step``, run eagerly.
+    - On a CUDA batch it replays a CUDA graph: one per (batch shapes and
+      dtypes, flavour), the flavours being the micro-step that only
+      accumulates and the one that also takes the AdamW step (the host
+      picks one from ``opt_state["mini_step"]``). A graph is captured at
+      the first call of its key and replayed by every later call with the
+      same model, adapter and state tensors and generator (others capture
+      anew). Every graph of the step shares one memory pool; ``log`` holds
+      each capture's key, host ms and the MiB the reserved memory grew by.
+    - Before a replay the batch is copied into the shape's static inputs
+      and ``optimizer.set_scalars`` fills the optimizer's numbers. The
+      adapter and the state's tensors change in place, and the dropout
+      generator, registered with the graph, advances as the eager step
+      advances it, so a replay gives the eager step's bits.
+    - The loss is the graph's 0-d output, overwritten by the next call:
+      read it before then. Nothing else is read back.
+    - A capture or a replay that raises propagates; nothing falls back to
+      the eager step.
+    """
+
+    def __init__(self, lcfg: LoraConfig, optimizer: AdapterOptimizer, train: bool = True):
+        self.lcfg, self.optimizer, self.train = lcfg, optimizer, train
+        self.graphs: Dict[tuple, _StepGraph] = {}
+        self.inputs: Dict[tuple, _Inputs] = {}
+        self.pool = None
+        self.log: List[dict] = []
+
+    def __call__(self, model: PaliGemma, lora: Adapter, opt_state: dict, batch: dict,
+                 generator: Optional[torch.Generator] = None):
+        dev = batch["input_ids"].device
+        if dev.type != "cuda":
+            return train_step(model, lora, opt_state, batch, generator, self.lcfg, self.optimizer, self.train)
+        gen = generator if self.train and self.lcfg.dropout > 0 else None
+        bkey = _batch_key(batch)
+        key = (bkey, self.optimizer.applies(opt_state))
+        if bkey not in self.inputs:
+            self.inputs[bkey] = _Inputs(batch)
+        static = self.inputs[bkey].fill(batch)
+        self.optimizer.set_scalars(opt_state, dev)
+        graph = self.graphs.get(key)
+        if graph is None or not graph.serves(model, lora, opt_state, gen):
+            self.graphs.pop(key, None)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = _StepGraph(model, lora, opt_state, gen)
+            graph.capture(lambda: _step_on_device(model, lora, opt_state, static, gen, self.lcfg,
+                                                  self.optimizer, self.train), dev, self.pool)
+            self.graphs[key] = graph
+            self.log.append({"key": key, "ms": graph.capture_ms, "mib": graph.mib})
+        graph._replay()
+        return graph.loss, lora, self.optimizer.advance(opt_state)
+
+
+def make_train_step(lcfg: LoraConfig, optimizer: AdapterOptimizer, train: bool = True) -> TrainStep:
+    """The train step, ``step(model, lora, opt_state, batch, generator) ->
+    (loss, lora, opt_state)`` (``TrainStep``): eager on the CPU, CUDA
+    graphs on the card."""
+    return TrainStep(lcfg, optimizer, train)
+
+
+def eval_loss(model: PaliGemma, lora: Optional[Adapter], batch: dict, scale: float) -> torch.Tensor:
+    """The eval loss, eagerly: ``loss_fn`` under ``no_grad`` through the
+    adapter (None: the base model) scaled by ``scale``, no dropout; a 0-d
+    fp32 tensor."""
+    with torch.no_grad():
+        return paligemma.loss_fn(model, batch["input_ids"], batch["pixel_values"], batch["labels"],
+                                 valid_len=batch.get("valid_len"), lora=lora, lora_scale=scale)
+
+
+class _EvalGraph(generation._Captured):
+    """``eval_loss`` for one batch shape, on one adapter's tensors."""
+
+    def __init__(self, model: PaliGemma, lora: Optional[Adapter]):
+        super().__init__(model, None, KERNELS)
+        self.ptrs = None if lora is None else _ptrs(adapter_leaves(lora))
+        self.loss = None
+
+    def serves(self, model: PaliGemma, lora: Optional[Adapter]) -> bool:
+        return self.model_ref() is model and self.ptrs == (None if lora is None else _ptrs(adapter_leaves(lora)))
+
+
+class EvalLoss:
+    """``make_eval_loss``'s result, the counterpart of the reference CLI's
+    jitted ``eval_loss``: ``fn(model, lora, batch) -> 0-d loss``,
+    ``eval_loss``'s arithmetic. Eager on a CPU batch. On a CUDA batch, one
+    CUDA graph per batch shape (and model and adapter tensors), all in one
+    memory pool: the first call of a shape is the eager loss (the capture's
+    warm-up, that call's answer); every later one copies the batch into the
+    shape's static inputs and replays. A replay's loss is the graph's
+    output, overwritten by the next call."""
+
+    def __init__(self, scale: float):
+        self.scale = scale
+        self.graphs: Dict[tuple, _EvalGraph] = {}
+        self.inputs: Dict[tuple, _Inputs] = {}
+        self.pool = None
+
+    def __call__(self, model: PaliGemma, lora: Optional[Adapter], batch: dict) -> torch.Tensor:
+        dev = batch["input_ids"].device
+        if dev.type != "cuda":
+            return eval_loss(model, lora, batch, self.scale)
+        key = _batch_key(batch)
+        if key not in self.inputs:
+            self.inputs[key] = _Inputs(batch)
+        static = self.inputs[key].fill(batch)
+        graph = self.graphs.get(key)
+        if graph is None or not graph.serves(model, lora):
+            self.graphs.pop(key, None)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            graph = _EvalGraph(model, lora)
+            warm, graph.loss = graph._capture(dev, lambda: eval_loss(model, lora, static, self.scale),
+                                              count_warm_up=True, pool=self.pool)
+            self.graphs[key] = graph
+            return warm
+        graph._replay()
+        return graph.loss
+
+
+def make_eval_loss(scale: float) -> EvalLoss:
+    """The eval loss through an adapter scaled by ``scale`` (``EvalLoss``):
+    eager on the CPU, a CUDA graph per batch shape on the card."""
+    return EvalLoss(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +627,14 @@ def train(
     ``train``). ``batches``: a callable ``epoch -> iterable`` (a fresh
     iterator an epoch), a list, or a one-shot generator of
     ``{"input_ids", "pixel_values", "labels"[, "valid_len"]}`` numpy or
-    tensor batches. A step that raises is skipped after emptying the CUDA
-    cache; three failures in a row re-raise. ``resume`` restores the
-    adapter, optimizer, step and generators from ``output_dir``'s
-    ``train_state.pt`` (when there is one) and skips the steps already
-    trained. Returns (the adapter, the per-step losses)."""
+    tensor batches. Each micro-step is ``make_train_step``'s: on the card a
+    CUDA graph replay. A step that raises (its capture included) is
+    skipped after emptying the CUDA cache; three failures in a row
+    re-raise. ``resume`` restores the adapter, optimizer, step and
+    generators from ``output_dir``'s ``train_state.pt`` (when there is
+    one) before the first step, so the graphs are captured on the restored
+    tensors, and skips the steps already trained; saves read those tensors.
+    Returns (the adapter, the per-step losses)."""
     lcfg = lcfg or LoraConfig()
     dev = model.llm.final_norm.weight.device
     lora = init_lora(model.cfg, lcfg, torch.Generator(device=dev).manual_seed(seed), dev)

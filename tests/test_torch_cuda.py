@@ -15,9 +15,14 @@ graph the eager iteration's tokens and counts. Under autograd, flash goes
 through ``FlashAttentionFn`` (the kernel's bits forward, the plain
 version's gradient backward), every other wrapper refuses a grad-requiring
 input, ``gemma.logits`` has a gradient, and a LoRA train step and a
-``lora_rank`` engine run on the card.
+``lora_rank`` engine run on the card; the compiled train step (CUDA graph
+replays) gives the eager step's bits, captures once a shape and flavour,
+resumes as an uninterrupted run and fails a step whose capture raises; the
+compiled eval loss gives the eager loss's bits; a join prefill's row 0 at
+group batch 32 parts from group batch 1 at no kernel of the port.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -1016,16 +1021,11 @@ def test_logits_gradient_is_the_widened_products(cuda):
     assert float((dh.float() - ref.float()).abs().max()) <= 2.0**-6 * float(ref.float().abs().max())
 
 
-def test_tiny_lora_train_step_on_the_card(cuda):
-    """One train step on the tiny bf16 model: the adapter gradients through
-    the kernels within cosine 0.999 and 1% in norm of those through the
-    plain versions (same dropout masks), flash launched once a SigLIP and
-    a Gemma layer and nothing else; the optimizer moves B."""
-    from paligemma_tpu_torch import lora
-
-    model, proc, images, prompts = _tiny_served(cuda)
-    rows = [proc(text=[p], images=[im]) for p, im in zip(prompts[1:3], images[1:3])]
-    t = max(r["input_ids"].shape[1] for r in rows)
+def _tiny_lora_batch(cuda, model, proc, images, prompts, pad=0, which=(1, 2)):
+    """Two rows of the tiny served traffic as a training batch, right-padded
+    to the longer row plus ``pad``."""
+    rows = [proc(text=[prompts[i]], images=[images[i]]) for i in which]
+    t = max(r["input_ids"].shape[1] for r in rows) + pad
     ids = torch.zeros((2, t), dtype=torch.int32)
     valid = torch.tensor([r["input_ids"].shape[1] for r in rows], dtype=torch.int32)
     for i, r in enumerate(rows):
@@ -1034,8 +1034,19 @@ def test_tiny_lora_train_step_on_the_card(cuda):
     n_img = model.cfg.vision_config.num_image_tokens
     for i in range(2):
         labels[i, n_img: valid[i]] = ids[i, n_img: valid[i]]
-    batch = {"input_ids": ids.to(cuda), "labels": labels.to(cuda), "valid_len": valid.to(cuda),
-             "pixel_values": torch.cat([torch.from_numpy(r["pixel_values"]) for r in rows]).to(cuda)}
+    return {"input_ids": ids.to(cuda), "labels": labels.to(cuda), "valid_len": valid.to(cuda),
+            "pixel_values": torch.cat([torch.from_numpy(r["pixel_values"]) for r in rows]).to(cuda)}
+
+
+def test_tiny_lora_train_step_on_the_card(cuda):
+    """One train step on the tiny bf16 model: the adapter gradients through
+    the kernels within cosine 0.999 and 1% in norm of those through the
+    plain versions (same dropout masks), flash launched once a SigLIP and
+    a Gemma layer and nothing else; the optimizer moves B."""
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    batch = _tiny_lora_batch(cuda, model, proc, images, prompts)
     lcfg = lora.LoraConfig(r=4, alpha=8, dropout=0.1)
     ad = lora.init_lora(model.cfg, lcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
     for mod in ad["layers"].values():
@@ -1064,6 +1075,199 @@ def test_tiny_lora_train_step_on_the_card(cuda):
     state = opt.init(ad)
     _, ad, state = step(model, ad, state, batch, torch.Generator(device=cuda).manual_seed(3))
     assert not torch.equal(b0, ad["layers"]["q"]["b"])
+
+
+def _tiny_training(cuda, accum=2):
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    lcfg = lora.LoraConfig(r=4, alpha=8, dropout=0.1)
+    ad = lora.init_lora(model.cfg, lcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    opt = lora.default_optimizer(lr=1e-2, accum_steps=accum)
+    return model, proc, images, prompts, lcfg, ad, opt
+
+
+def _clone_state(state):
+    return {k: [t.clone() for t in v] if isinstance(v, list) else v for k, v in state.items()}
+
+
+def test_compiled_train_step_is_the_eager_step_bit_for_bit(cuda):
+    """5 micro-steps, accumulation 2, dropout 0.1, from one adapter,
+    optimizer state and generator state: the replayed CUDA graphs give each
+    loss, the adapter, the state and the generator's state of
+    ``lora.train_step`` bit for bit, with one capture a flavour at its
+    first micro-step and the eager launches."""
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts, lcfg, ad, opt = _tiny_training(cuda)
+    batches = [_tiny_lora_batch(cuda, model, proc, images, prompts, which=w) for w in ((1, 2), (0, 3))]
+    start = (lora._map(lambda t: t.clone(), ad), opt.init(ad))
+    runs = {}
+    for name in ("eager", "compiled"):
+        a, state = lora._map(lambda t: t.clone(), start[0]), _clone_state(start[1])
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        step = lora.make_train_step(lcfg, opt) if name == "compiled" else (
+            lambda m, a, s, b, g: lora.train_step(m, a, s, b, g, lcfg, opt))
+        losses, captures = [], []
+        kernels.reset_launch_counts()
+        for i in range(5):
+            n = len(getattr(step, "log", ()))
+            loss, a, state = step(model, a, state, batches[i % 2], gen)
+            losses.append(float(loss))
+            captures.append(len(getattr(step, "log", ())) - n)
+        torch.cuda.synchronize()
+        runs[name] = (losses, a, state, gen.get_state(), captures, kernels.launch_counts())
+    (le, ae, se, ge, _, ce), (lc, ac, sc, gc, cap, cc) = runs["eager"], runs["compiled"]
+    assert lc == le and all(math.isfinite(x) for x in lc)
+    assert all(torch.equal(x, y) for x, y in zip(lora.adapter_leaves(ae), lora.adapter_leaves(ac)))
+    assert all(torch.equal(x, y) for k in ("acc", "mu", "nu") for x, y in zip(se[k], sc[k]))
+    assert (se["mini_step"], se["count"]) == (sc["mini_step"], sc["count"]) == (1, 2)
+    assert torch.equal(ge, gc)
+    assert cap == [1, 1, 0, 0, 0] and ce == cc
+    assert not torch.equal(ae["layers"]["q"]["b"], start[0]["layers"]["q"]["b"])
+
+
+def test_compiled_train_step_captures_once_a_shape(cuda):
+    """A new batch shape captures its graphs; a shape seen before replays."""
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts, lcfg, ad, opt = _tiny_training(cuda, accum=1)
+    step = lora.make_train_step(lcfg, opt)
+    state = opt.init(ad)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    short, long = (_tiny_lora_batch(cuda, model, proc, images, prompts, pad=p) for p in (0, 6))
+    counts = []
+    for batch in (short, short, long, short, long):
+        _, ad, state = step(model, ad, state, batch, gen)
+        counts.append(len(step.log))
+    assert counts == [1, 1, 2, 2, 2]
+    assert {e["key"][0][0][1] for e in step.log} == {tuple(short["input_ids"].shape), tuple(long["input_ids"].shape)}
+
+
+def test_resume_into_the_compiled_step_equals_an_uninterrupted_compiled_run(cuda, tmp_path):
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    batches = [_tiny_lora_batch(cuda, model, proc, images, prompts, which=w) for w in ((1, 2), (0, 3))] * 3
+    kw = dict(lcfg=lora.LoraConfig(r=2, alpha=4, dropout=0.1), lr=1e-2, accum_steps=3, log_every=0,
+              save_train_state_too=True)
+    full, losses = lora.train(model, batches, save_every_n_steps=0, output_dir=str(tmp_path / "a"), **kw)
+    lora.train(model, batches[:2], save_every_n_steps=2, output_dir=str(tmp_path / "b"), **kw)
+    resumed, losses_r = lora.train(model, batches, save_every_n_steps=0, output_dir=str(tmp_path / "b"),
+                                   resume=True, logger=lambda m: None, **kw)
+    assert losses_r == losses[2:] and len(losses) == 6
+    for a, b in zip(lora.adapter_leaves(full), lora.adapter_leaves(resumed)):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+def test_a_step_that_raises_in_its_capture_is_a_failed_step_in_train(cuda, tmp_path, monkeypatch):
+    """The first capture raises: ``train`` counts one failure and skips the
+    batch (the adapter and state as they were), the next call captures
+    and trains; a capture that raises every time re-raises after three."""
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    batch = _tiny_lora_batch(cuda, model, proc, images, prompts)
+    real, calls = lora._step_on_device, []
+
+    def flaky(*args, fail_every=False):
+        if torch.cuda.is_current_stream_capturing():
+            calls.append(1)
+            if fail_every or len(calls) == 1:
+                raise RuntimeError("capture failed on purpose")
+        return real(*args)
+
+    monkeypatch.setattr(lora, "_step_on_device", flaky)
+    logs = []
+    ad, losses = lora.train(model, [batch] * 4, lcfg=lora.LoraConfig(r=2, alpha=4), accum_steps=1, lr=1e-2,
+                            output_dir=str(tmp_path / "a"), logger=logs.append, save_every_n_steps=0)
+    assert sum("clearing caches and skipping" in m for m in logs) == 1 and len(losses) == 3
+    assert all(math.isfinite(x) for x in losses)
+    monkeypatch.setattr(lora, "_step_on_device", lambda *a: flaky(*a, fail_every=True))
+    logs.clear()
+    with pytest.raises(RuntimeError, match="on purpose"):
+        lora.train(model, [batch] * 5, lcfg=lora.LoraConfig(r=2, alpha=4), output_dir=str(tmp_path / "b"),
+                   logger=logs.append)
+    assert sum("clearing caches and skipping" in m for m in logs) == 3
+
+
+def test_compiled_eval_loss_is_the_eager_loss_bit_for_bit(cuda):
+    from paligemma_tpu_torch import lora
+
+    model, proc, images, prompts, lcfg, ad, _ = _tiny_training(cuda)
+    for mod in ad["layers"].values():
+        mod["b"].normal_(0.0, 0.05, generator=torch.Generator(device=cuda).manual_seed(2))
+    fn = lora.make_eval_loss(lcfg.scale)
+    for pad in (0, 5, 0):
+        batch = _tiny_lora_batch(cuda, model, proc, images, prompts, pad=pad)
+        ref = lora.eval_loss(model, ad, batch, lcfg.scale)
+        for _ in range(2):  # the first call of a shape (its capture's warm-up), then a replay
+            assert torch.equal(fn(model, ad, batch), ref)
+    assert len(fn.graphs) == 2
+    base = lora.eval_loss(model, None, batch, lcfg.scale)
+    assert torch.equal(fn(model, None, batch), base) and not torch.equal(base, ref)
+
+
+def test_join_prefill_row_parts_at_no_kernel_of_the_port(cuda):
+    """The tiny bf16 model's join prefill (``serving.batched_prefill``) at
+    group batch 1 and 32, one request at row 0 in both: row 0 compared op by
+    op; where it parts, the op is PyTorch's, never a kernel of the port
+    (flash is launched at both group batches)."""
+    from paligemma_tpu_torch import serving
+    from paligemma_tpu_torch.utils import rowdiff
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    rows = [proc(text=[p], images=[im]) for p, im in zip(prompts, images)]
+    t = max(r["input_ids"].shape[1] for r in rows)
+    ids = torch.zeros((32, t), dtype=torch.int32, device=cuda)
+    valid = torch.zeros(32, dtype=torch.int32, device=cuda)
+    pix = torch.zeros((32, *rows[0]["pixel_values"].shape[1:]), dtype=torch.bfloat16, device=cuda)
+    for i in range(32):
+        r = rows[i % 4]
+        n = r["input_ids"].shape[1]
+        ids[i, :n], valid[i] = torch.from_numpy(r["input_ids"][0]).to(cuda), n
+        pix[i] = torch.from_numpy(r["pixel_values"][0]).to(cuda, torch.bfloat16)
+
+    def run(fns, b):
+        cache = gemma.init_cache(model.cfg.text_config, b, t, torch.bfloat16, cuda)
+        return serving.batched_prefill(model, ids[:b], pix[:b], valid[:b], cache, fns)[0]
+
+    before = kernels.launch_counts()["flash_attention"]
+    diff = rowdiff.first_row_difference(run, 1, 32, labels=rowdiff.model_labels(model))
+    layers = model.cfg.vision_config.num_hidden_layers + model.cfg.text_config.num_hidden_layers
+    assert kernels.launch_counts()["flash_attention"] - before == 2 * layers
+    assert diff is None or not diff["op"].startswith("fns."), diff
+
+
+def test_full_width_join_prefill_row_parts_first_at_a_cublas_product(cuda):
+    """The finding this pins: at the 3B-224 widths (one SigLIP and one Gemma
+    layer, seeded random weights, 256 image tokens + 93 text), row 0 of a
+    join prefill at group batch 32 parts from the same row at group batch 1
+    first at a bf16 ``aten.mm`` (cuBLAS) of the Gemma layer; the SigLIP
+    tower, the qkv product and the flash kernel before it agree bit for
+    bit. A request's tokens may so depend on its group batch by design
+    (ROADMAP.md, Queue 3)."""
+    from paligemma_tpu_torch import serving
+    from paligemma_tpu_torch.utils import rowdiff
+
+    cfg = paligemma_tpu_torch.paligemma_3b_pt_224()
+    cfg = dataclasses.replace(
+        cfg, vision_config=dataclasses.replace(cfg.vision_config, num_hidden_layers=1),
+        text_config=dataclasses.replace(cfg.text_config, num_hidden_layers=1))
+    model = paligemma.init_params(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    n_img, size, t = cfg.vision_config.num_image_tokens, cfg.vision_config.image_size, 349
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    ids = torch.randint(3, 30000, (32, t), generator=gen, device=cuda, dtype=torch.int32)
+    pix = torch.randn((32, 3, size, size), generator=gen, device=cuda).to(torch.bfloat16)
+    valid = torch.tensor([t - 10 * (i % 7) for i in range(32)], dtype=torch.int32, device=cuda)
+
+    def run(fns, b):
+        cache = gemma.init_cache(cfg.text_config, b, t, torch.bfloat16, cuda)
+        return serving.batched_prefill(model, ids[:b], pix[:b], valid[:b], cache, fns)[0]
+
+    diff = rowdiff.first_row_difference(run, 1, 32, labels=rowdiff.model_labels(model))
+    assert diff is not None and diff["op"] == "aten.mm" and diff["where"] == "gemma layer 0", diff
+    assert "sequence" not in diff and diff["differing"] > 0
 
 
 def test_tiny_lora_engine_on_the_card(cuda):

@@ -14,13 +14,18 @@ gradient is.
 - The flash backward (``FlashAttentionPlainFn``, the backward the card's
   ``FlashAttentionFn`` runs) against ``jax.grad`` of JAX's attention under a
   ``LengthMask``: within 1e-5.
-- 4 micro-steps with accumulation 2: the adapter after every call within
-  1e-4 of JAX's ``make_train_step`` + ``default_optimizer`` (unchanged after
-  calls 1 and 3).
+- 4 micro-steps with accumulation 2 and 3, the clip taken and not: the
+  loss and the adapter after every call within 1e-5 / 1e-4 of JAX's jitted
+  ``make_train_step`` + ``default_optimizer`` (unchanged mid-accumulation).
+- A micro-step of each flavour reads nothing back to the host (a dispatch
+  mode raises on any read): a CUDA graph can capture it.
+- ``make_eval_loss`` against the reference CLI's ``eval_loss`` on a padded
+  tail batch.
 - ``merge_lora``'s weights within 1e-6 of JAX's, and its forward that of the
   adapter on the fly.
 - Adapter files both ways, all three tiers, exactly; ``train`` smoke;
-  resume equal to an uninterrupted run; dropout's kept share and scale;
+  resume equal to an uninterrupted run (after an update, and mid-way
+  through an accumulation); dropout's kept share and scale;
   the reference-shaped ``forward`` router's routing, loss and errors.
 """
 import dataclasses
@@ -34,6 +39,7 @@ import optax
 import pytest
 import safetensors.numpy
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from paligemma_tpu import lora as jlora
 from paligemma_tpu.models import gemma as jgemma
@@ -212,17 +218,21 @@ def test_flash_backward_matches_jax_grad(valid):
         assert torch.equal(ca.flash_attention(tq, tk, tv), ca.flash_attention_plain(tq, tk, tv))
 
 
-def test_accumulated_steps_match_jax(setup, params, cfg):
-    """4 micro-steps with accumulation 2 (clipping active: max norm 0.01):
-    the adapter after each call against JAX's jitted step and optimizer."""
+@pytest.mark.parametrize("accum", [2, 3])
+@pytest.mark.parametrize("max_norm", [0.01, 1e3], ids=["clipped", "unclipped"])
+def test_accumulated_steps_match_jax(setup, params, cfg, accum, max_norm):
+    """4 micro-steps with accumulation 2 or 3 (crossing an update), the clip
+    taken (max norm 0.01) or not (1e3): ``make_train_step``'s result (on
+    the CPU, the eager step) against JAX's jitted step and optimizer, the
+    loss and the adapter after each call."""
     model, batch = setup
     lcfg_j, lcfg_t = jlora.LoraConfig(**LCFG), tlora.LoraConfig(**LCFG)
     ad = random_adapter(cfg, 13)
-    jopt = optax.MultiSteps(optax.chain(optax.clip_by_global_norm(0.01), optax.adamw(5e-3, weight_decay=0.0)),
-                            every_k_schedule=2)
+    jopt = optax.MultiSteps(optax.chain(optax.clip_by_global_norm(max_norm), optax.adamw(5e-3, weight_decay=0.0)),
+                            every_k_schedule=accum)
     jstate = jopt.init(jax.tree_util.tree_map(jnp.asarray, ad))
     jstep = jlora.make_train_step(cfg, lcfg_j, jopt, train=False)
-    topt = tlora.AdapterOptimizer(lr=5e-3, accum_steps=2, max_grad_norm=0.01)
+    topt = tlora.AdapterOptimizer(lr=5e-3, accum_steps=accum, max_grad_norm=max_norm)
     tad = lora_from_jax(ad, device="cpu")
     tstate = topt.init(tad)
     tstep = tlora.make_train_step(lcfg_t, topt, train=False)
@@ -236,13 +246,90 @@ def test_accumulated_steps_match_jax(setup, params, cfg):
         tl, tad, tstate = tstep(model, tad, tstate, tbatch(bt))
         assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
         ref = leaves_by_name(jax.tree_util.tree_map(np.asarray, jad))
+        updated = (i + 1) % accum == 0
+        if i == 0:  # the first gradient's norm is on the side of the bar the case says
+            norm = float(torch.sqrt(sum((g * g).sum() for g in tstate["acc"])))
+            assert (norm > max_norm) == (max_norm < 1.0), norm
         for got, r, p in zip(tlora.adapter_leaves(tad), ref, prev):
             np.testing.assert_allclose(got.numpy(), r, rtol=1e-4, atol=1e-4 * np.abs(r).max())
-            if i % 2 == 0:
+            if not updated:
                 assert np.array_equal(got.numpy(), p)  # mid-accumulation: unchanged
-        if i % 2 == 1:
+        if updated:
             assert any(not np.array_equal(r, p) for r, p in zip(ref, prev))
         prev = [t.numpy().copy() for t in tlora.adapter_leaves(tad)]
+
+
+class _NoHostRead(TorchDispatchMode):
+    """Raises on an operation that reads a tensor back to the host (a
+    scalar read, ``nonzero``, a copy from another device to the CPU), except
+    a scalar read of a tensor made from a Python number in the same call
+    (``torch.tensor(x)``, a host constant)."""
+
+    READS = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.nonzero.default,
+             torch.ops.aten.equal.default, torch.ops.aten.is_nonzero.default}
+
+    def __init__(self):
+        super().__init__()
+        self.fresh, self.ops = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.ops += 1
+        if func in self.READS and not (func is torch.ops.aten._local_scalar_dense.default
+                                       and any(args[0] is t for t in self.fresh)):
+            raise AssertionError(f"host read in the step: {func}")
+        if func in (torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default):
+            src = args[1] if func is torch.ops.aten.copy_.default else args[0]
+            dst = args[0].device if func is torch.ops.aten.copy_.default else kwargs.get("device")
+            if dst is not None and torch.device(dst).type == "cpu" and src.device.type != "cpu":
+                raise AssertionError(f"device-to-host copy in the step: {func}")
+        out = func(*args, **kwargs)
+        if func is torch.ops.aten.lift_fresh.default:
+            self.fresh.append(out)
+        return out
+
+
+def test_a_micro_step_reads_nothing_back_from_the_device(setup):
+    """A whole micro-step of each flavour (forward, ``autograd.grad``, the
+    optimizer's ``apply``, dropout on) under a dispatch mode that raises on
+    any read back to the host: what a CUDA graph can capture."""
+    model, batch = setup
+    lcfg = tlora.LoraConfig(r=2, alpha=4, dropout=0.1)
+    opt = tlora.AdapterOptimizer(lr=1e-2, accum_steps=2, max_grad_norm=0.01)
+    ad = tlora.init_lora(model.cfg, lcfg, torch.Generator().manual_seed(0), device="cpu")
+    state = opt.init(ad)
+    gen = torch.Generator().manual_seed(1)
+    for applies in (False, True):
+        assert opt.applies(state) == applies
+        b0 = ad["layers"]["q"]["b"].clone()
+        opt.set_scalars(state, "cpu")  # the host's part, filled before a replay
+        with _NoHostRead() as mode:
+            loss = tlora._step_on_device(model, ad, state, tbatch(batch), gen, lcfg, opt, train=True)
+        assert mode.ops > 100 and torch.isfinite(loss)
+        assert torch.equal(b0, ad["layers"]["q"]["b"]) != applies  # the apply flavour moved B
+        state = opt.advance(state)
+
+
+def test_eval_loss_matches_the_reference_cli_on_a_padded_tail_batch(setup, params, cfg):
+    """``make_eval_loss`` (on the CPU, the eager loss) against the reference
+    CLI's ``eval_loss`` arithmetic (JAX ``loss_fn`` through the adapter, no
+    dropout) on a batch padded with a copy of row 0 whose labels are all
+    ignored: the same loss, within 1e-5, and the same token weight."""
+    model, batch = setup
+    ad = random_adapter(cfg, 23)
+    lcfg = jlora.LoraConfig(**LCFG)
+    padded = {k: np.concatenate([v, v[:1]]) for k, v in batch.items()}
+    padded["labels"][2:] = cfg.ignore_index
+    jb = jbatch(padded)
+    ref = jpg.loss_fn(params, cfg, jb["input_ids"], jb["pixel_values"], jb["labels"], valid_len=jb["valid_len"],
+                      lora=jax.tree_util.tree_map(jnp.asarray, ad), lora_scale=lcfg.scale, lora_dropout=0.0)
+    fn = tlora.make_eval_loss(lcfg.scale)
+    got = fn(model, lora_from_jax(ad, device="cpu"), tbatch(padded))
+    assert got.shape == () and got.dtype == torch.float32
+    assert abs(float(got) - float(ref)) <= 1e-5 * abs(float(ref))
+    # The padded row weighs nothing: the loss of the two real rows.
+    real = fn(model, lora_from_jax(ad, device="cpu"), tbatch(batch))
+    assert abs(float(got) - float(real)) <= 1e-6 * abs(float(real))
 
 
 def test_merge_lora_matches_jax_and_the_unmerged_forward(setup, params, cfg):
@@ -321,6 +408,26 @@ def test_train_smoke_and_resume_equal_to_an_uninterrupted_run(tmp_path, setup):
         assert torch.equal(a, b)
     saved = tlora.load_adapter(str(tmp_path / "b"), device="cpu")
     for a, b in zip(tlora.adapter_leaves(saved), tlora.adapter_leaves(resumed)):
+        assert torch.equal(a, b)
+
+
+def test_resume_mid_accumulation_equals_an_uninterrupted_run(tmp_path, setup):
+    """Accumulation 3, the train state saved after 2 micro-steps (the mean
+    half full): resumed to 6, the losses and the adapter of 6 uninterrupted
+    steps, bit for bit."""
+    model, batch = setup
+    other = {**batch, "labels": np.where(batch["labels"] >= 0, (batch["labels"] * 5) % 250, -100).astype(np.int32)}
+    batches = [batch, other] * 3
+    kw = dict(lcfg=tlora.LoraConfig(r=2, alpha=4, dropout=0.1), lr=1e-2, accum_steps=3, log_every=0,
+              save_train_state_too=True)
+    full, losses = tlora.train(model, batches, save_every_n_steps=0, output_dir=str(tmp_path / "a"), **kw)
+    tlora.train(model, batches[:2], save_every_n_steps=2, output_dir=str(tmp_path / "b"), **kw)
+    _, opt_state, step, _ = tlora.load_train_state(str(tmp_path / "b"), device="cpu")
+    assert step == 2 and opt_state["mini_step"] == 2 and any(bool(t.any()) for t in opt_state["acc"])
+    resumed, losses_r = tlora.train(model, batches, save_every_n_steps=0, output_dir=str(tmp_path / "b"),
+                                    resume=True, logger=lambda m: None, **kw)
+    assert losses_r == losses[2:]
+    for a, b in zip(tlora.adapter_leaves(full), tlora.adapter_leaves(resumed)):
         assert torch.equal(a, b)
 
 

@@ -31,9 +31,12 @@ arm's cache), after a warm-up:
 ``--train`` profiles a LoRA training micro-step instead (chip_smoke's
 phase 15 batch: B = 2, T = 320, r 8, alpha 16, dropout 0.1, B seeded
 non-zero; an accumulating call, no optimizer step): unprofiled host ms,
-then the forward (the loss) alone and the whole micro-step under the
-profiler: device ms by group and kernel, launches, the busy share, and
-the host's PyTorch op calls.
+then under the profiler the forward (the loss with its autograd graph)
+alone, the whole micro-step eager (``lora.train_step``) and as a CUDA
+graph replay (``lora.make_train_step``), and the eval loss's forward
+(``no_grad``) eager and as a replay (``lora.make_eval_loss``): device ms by
+group and kernel, launches, the busy share, and the host's PyTorch op
+calls (a replay's are its input copies).
 
 Prints one summary line per arm and group, and the whole result as one JSON
 line (also written to ``--out`` when given). Needs a CUDA device; exits 2
@@ -123,7 +126,9 @@ def summarize(kernels, per: int):
 
 def profile_train(torch, model, proc, cfg, smi):
     """One LoRA micro-step (forward and backward, the accumulation only)
-    and its forward alone: host ms, device time by group, busy share."""
+    and its forward alone, eager and as CUDA graph replays
+    (``lora.make_train_step``, ``lora.make_eval_loss``): host ms, device
+    time by group, busy share, op calls."""
     import chip_smoke
     from paligemma_tpu_torch import lora
     from paligemma_tpu_torch.models import paligemma
@@ -137,9 +142,14 @@ def profile_train(torch, model, proc, cfg, smi):
     opt = lora.AdapterOptimizer(accum_steps=10**9)  # accumulates only: the micro-step without its update
     state = opt.init(ad)
     step = lora.make_train_step(lcfg, opt)
+    eval_graph = lora.make_eval_loss(lcfg.scale)
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def micro(_=None):
+        nonlocal state
+        _, _, state = lora.train_step(model, ad, state, batch, gen, lcfg, opt)
+
+    def micro_graph(_=None):
         nonlocal state
         _, _, state = step(model, ad, state, batch, gen)
 
@@ -149,8 +159,15 @@ def profile_train(torch, model, proc, cfg, smi):
                           valid_len=batch["valid_len"], lora=live, lora_scale=lcfg.scale,
                           lora_dropout=lcfg.dropout, lora_generator=gen)
 
+    def eval_forward(_=None):
+        lora.eval_loss(model, ad, batch, lcfg.scale)
+
+    def eval_forward_graph(_=None):
+        eval_graph(model, ad, batch)
+
     result = {"device": smi, "shape": f"B=2 T={chip_smoke.LORA_VALID[0]} valid {list(chip_smoke.LORA_VALID)}"}
-    for name, fn in (("forward", forward), ("micro_step", micro)):
+    for name, fn in (("forward", forward), ("micro_step", micro), ("micro_step_graph", micro_graph),
+                     ("eval_forward", eval_forward), ("eval_forward_graph", eval_forward_graph)):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
