@@ -202,6 +202,28 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     without ``lora_rank``. Then ``server_torch.build_server`` with
     ``--continuous --adapter trained=DIR`` lists it in /healthz and answers
     a request naming it with the in-process engine's tokens.
+17. Parallelism (``phase_parallel``; the final norm redrawn as in phase 7):
+    two ranks spawned on the one card over gloo (NCCL refuses two ranks on
+    one device), each making the seeded 3B model on the card and taking
+    its slices with ``parallel.sharding.shard_params``. Gated: each rank's
+    parameter bytes equal the rules' count, in bf16 and int8; phase 4's
+    three requests through the tensor-parallel model, bf16 and int8:
+    ``generate``'s 32 greedy tokens equal the unsharded model's or part at
+    a near tie (phase 10's rule), the sharded prefill's last-position logits
+    within phase 5's bar, each rank's launches those the code implies
+    (flash 27 + 18 a prefill, decode 18 a token, q8 73 a token in int8); a
+    (2, 1) data-parallel prefill's rows within the bar of the unsharded
+    batch's; one DP x TP LoRA micro-step (1, 2) at B = 2, T = 320 against
+    the unsharded step within phase 15's gradient bars; a 2-stage pipelined
+    loss within 0.5% of the unsharded loss; a 2-rank tensor-parallel
+    continuous engine (4 slots, chunk 8, phase 14's identity traffic, no
+    graph over gloo) against the unsharded engine (near-tie rule where they
+    part). Then a world-size-1 NCCL group in this process: the sharded
+    decode captured as a CUDA graph with its collectives inside, its replay
+    bit for bit the eager step. Reported, not gated: which collectives
+    gloo runs on CUDA tensors, per-rank host ms of a prefill and a decode
+    token over gloo (not a tensor-parallel speed), the host copies of the
+    pipeline's gloo point-to-point, per-rank peak MiB.
 
 Phase 3 also holds batched serving's decode (batch 4, per-row valid, the
 window's end read on the device: bit for bit the host end's, also from a
@@ -211,7 +233,11 @@ call, flash at the ablation's buffers (T = S = 512 with 276 valid, 640,
 and the w4a8 MLP at 4 rows; phase 6 times them beside the rest, and the
 continuous engine's shapes: decode attention at 33 rows (per-row valid)
 at each window width of the throughput cell and its k = 8 verify, q8 at
-33 and 264 rows, the w4a8 MLP at 33 rows.
+33 and 264 rows, the w4a8 MLP at 33 rows; and a tensor-parallel rank's
+shapes at model = 2 (phase 17): flash with half the heads (SigLIP H=8, the
+prefill and the training batch at H=4 Hkv=1), decode and the engine's
+verify at 4 query heads a kv head, q8 at the rank's qkv, o, gate_up, down
+and lm_head widths (o and down with fp32 out) at 1, 33, 264 and 276 rows.
 
 The second-to-last line is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -316,6 +342,11 @@ FLASH_CASES = [
      {"valid_len": [70, 300, 5, 129]}, None),
     ("GQA 8:1 valid=200 window=[230,250) D=256", (1, 276, 8, 1, 256),
      {"valid_len": 200, "gen_start": 230, "gen_end": 250}, None),
+    # A tensor-parallel rank's shapes at model = 2 (phase 17): half the heads.
+    ("TP rank siglip T=S=256 H=8 D=72", (1, 256, 8, 8, 72), {}, None),
+    ("TP rank gemma prefill T=S=276 H=4 Hkv=1 D=256", (1, 276, 4, 1, 256), {}, None),
+    ("TP rank training B=2 T=S=320 valid=[320,300] H=4 Hkv=1 D=256", (2, 320, 4, 1, 256),
+     {"valid_len": [320, 300]}, None),
 ]
 # Decode attention over one set of visible rows in caches of each length
 # (phase 3): valid, the cache lengths (clusters of 8 and 16 blocks, one and
@@ -446,6 +477,9 @@ def phase_kernels(torch):
         # The longest cache the kernel's shared memory holds.
         (f"longest S={ca.decode_max_len(8, 256)} + poison", (1, ca.decode_max_len(8, 256), 8, 1, 256),
          [ca.decode_max_len(8, 256) - 5], {}, ca.decode_max_len(8, 256) - 5),
+        # A tensor-parallel rank at model = 2 (phase 17): 4 query heads a kv head.
+        ("TP rank main path S=308 valid=292 H=4 Hkv=1", (1, 308, 4, 1, 256), [292], {}, None),
+        ("TP rank cluster edge S=513 H=4 Hkv=1 + poison", (1, 513, 4, 1, 256), [400], {}, 400),
     ]
     for name, (b, s, h, hkv, d), valid, kw, poison in decode_cases:
         kc = _rand(torch, gen, (3, b, s, hkv, d), dev)[1]  # a layer of a stacked cache
@@ -612,6 +646,14 @@ def phase_kernels(torch):
                 check(all_ok and rows_same and poison_same,
                       f"verify-shape decode {kv} S={s_len} valid={valid}: kernel disagrees")
                 max_err["decode_attention"] = max(max_err["decode_attention"], worst)
+    # A tensor-parallel rank's verify in the continuous engine (phase 17):
+    # 33 rows, k = 8 queries a row, 4 query heads a kv head.
+    b, t, s_len = THROUGHPUT["n_slots"] + 1, 8, 384
+    q = _rand(torch, gen, (b, t, 4, 256), dev)
+    k, v = (_rand(torch, gen, (3, b, s_len, 1, 256), dev)[1] for _ in range(2))
+    vt = torch.randint(200, s_len - t, (b,), generator=gen, device=dev).to(torch.int32)
+    run_case("decode_attention", f"TP rank verify B={b} T={t} S={s_len} per-row valid H=4 Hkv=1",
+             ca.decode_attention, ca.decode_attention_plain, (q, k, v, vt), dict(scale=256**-0.5))
     kc, vc = _rand(torch, gen, (1, 308, 1, 256), dev), _rand(torch, gen, (1, 308, 1, 256), dev)
     before = ca.launch_counts()["decode_attention"]
     try:
@@ -698,6 +740,16 @@ def phase_quant_kernels(torch):
         ("batch-4 prefill GEMM M=4x276 O=32768 D=2048", 1104, 32768, 2048, False),
         ("no-cache GEMM M=640 O=2560 D=2048", 640, 2560, 2048, False),
         ("no-cache GEMM M=1024 O=2048 D=16384", 1024, 2048, 16384, False),
+        # A tensor-parallel rank at model = 2 (phase 17): qkv with half the
+        # query heads and the kv head, gate_up halves and the vocab half
+        # column-parallel; o and down row-parallel with fp32 out (their
+        # partial sums are reduced before one rounding); decode, prefill and
+        # the engine's slot step (33 rows) and k = 8 verify (264 rows).
+        *((f"TP rank {what} M={m} O={o} D={d}{' fp32' if f32 else ''}", m, o, d, f32)
+          for m, what in ((1, "decode"), (276, "prefill"), (33, "slot step"), (264, "verify k=8"))
+          for o, d, f32 in ((1536, 2048, False), (2048, 1024, True), (16384, 2048, False), (2048, 8192, True))),
+        ("TP rank decode lm_head M=1 O=128576 D=2048 fp32", 1, 128576, 2048, True),
+        ("TP rank slot step lm_head M=33 O=128576 D=2048 fp32", 33, 128576, 2048, True),
     ]
     for name, m, o, d, f32 in q8_cases:
         x, q = _rand(torch, gen, (m, d), dev), ints((o, d), -127, 128)
@@ -1072,6 +1124,26 @@ def phase_timing(torch, prompt_len):
          lambda i: sdpa(*gem_lib, scale=256**-0.5),
          (*_attention_cost(1, prompt_len, prompt_len, 8, 1, 256), "bf16")),
     ]
+    # A tensor-parallel rank at model = 2 (phase 17): half the heads; not
+    # in the per-launch mean.
+    fused = _rand(torch, gen, (1, 256, 3 * 576), dev)
+    tp_sig = [x.view(1, 256, 8, 72) for x in fused.split(576, dim=-1)]
+    tp_sig_lib = [x.transpose(1, 2).contiguous() for x in tp_sig]
+    fused = _rand(torch, gen, (1, prompt_len, 1536), dev)
+    tp_gem = [x.view(1, prompt_len, -1, 256) for x in fused.split([1024, 256, 256], dim=-1)]
+    tp_gem_lib = [tp_gem[0].reshape(1, 1, prompt_len * 4, 256), tp_gem[1].reshape(1, 1, prompt_len, 256),
+                  tp_gem[2].reshape(1, 1, prompt_len, 256)]
+    flash_rows += [
+        ("TP rank siglip T=S=256 H=8 D=72", 0,
+         lambda i: ca.flash_attention(*tp_sig, scale=72**-0.5),
+         lambda i: ca.flash_attention_plain(*tp_sig, scale=72**-0.5),
+         lambda i: sdpa(*tp_sig_lib, scale=72**-0.5), (*_attention_cost(1, 256, 256, 8, 8, 72), "bf16")),
+        (f"TP rank gemma prefill T=S={prompt_len} H=4 Hkv=1 D=256", 0,
+         lambda i: ca.flash_attention(*tp_gem, scale=256**-0.5),
+         lambda i: ca.flash_attention_plain(*tp_gem, scale=256**-0.5),
+         lambda i: sdpa(*tp_gem_lib, scale=256**-0.5),
+         (*_attention_cost(1, prompt_len, prompt_len, 4, 1, 256), "bf16")),
+    ]
     # The 448- and 896-px presets' lengths (1024 and 4096 image tokens, and
     # a 20-token prompt in the decoder); not in the per-launch mean.
     for label, t, h, hkv, d in (("448-px siglip", 1024, 16, 16, 72), ("448-px gemma prefill", 1044, 8, 1, 256),
@@ -1183,6 +1255,38 @@ def phase_timing(torch, prompt_len):
                      lambda i, a=v_lib, m=v_seen: sdpa(*a, attn_mask=m[None, None], scale=256**-0.5),
                      (2 * 2 * t * 8 * 256 + 2 * 2 * n_vis * 256, 4 * 8 * seen_rows * 256, "bf16")))
     rows += _slot_decode_rows(torch, gen, dev, prompt_len)
+    # A tensor-parallel rank at model = 2 (phase 17): 4 query heads a kv
+    # head, batch-1 decode at the main path's length and the engine's k = 8
+    # verify of 33 rows; not in the per-launch mean. (Names of their own:
+    # the rows above read theirs when they are timed.)
+    tp_valid = prompt_len + MAX_NEW_TOKENS // 2
+    tp_kc, tp_vc = (_rand(torch, gen, (18, 1, s_main, 1, 256), dev)[9] for _ in range(2))
+    tp_args = (_rand(torch, gen, (1, 1, 4, 256), dev), tp_kc, tp_vc,
+               torch.tensor([tp_valid], dtype=torch.int32, device=dev))
+    tp_lib = [tp_args[0].reshape(1, 1, 4, 256), tp_kc[:, :tp_valid].reshape(1, 1, tp_valid, 256).contiguous(),
+              tp_vc[:, :tp_valid].reshape(1, 1, tp_valid, 256).contiguous()]
+    rows.append((f"TP rank decode S={s_main} valid={tp_valid} H=4 Hkv=1 D=256", 0,
+                 lambda i, a=tp_args: ca.decode_attention(*a, scale=256**-0.5),
+                 lambda i, a=tp_args: ca.decode_attention_plain(*a, scale=256**-0.5),
+                 lambda i, a=tp_lib: sdpa(*a, scale=256**-0.5),
+                 (*_attention_cost(1, 1, tp_valid, 4, 1, 256), "bf16")))
+    tp_b, tp_t, tp_s = THROUGHPUT["n_slots"] + 1, 8, 384
+    tp_kc, tp_vc = (_rand(torch, gen, (tp_b, tp_s, 1, 256), dev) for _ in range(2))
+    tp_lens = torch.randint(prompt_len - 20, tp_s - 2 * tp_t - 1, (tp_b,), generator=gen,
+                            device=dev).to(torch.int32)
+    tp_args = (_rand(torch, gen, (tp_b, tp_t, 4, 256), dev), tp_kc, tp_vc, tp_lens + 1)
+    tp_vis = tp_lens[:, None] + 1 + torch.arange(tp_t, device=dev)[None, :]
+    tp_mask = (torch.arange(tp_s, device=dev)[None, None, :] < tp_vis[:, :, None]).repeat_interleave(
+        4, dim=1)[:, None]
+    tp_lib = [tp_args[0].reshape(tp_b, 1, tp_t * 4, 256), tp_kc.reshape(tp_b, 1, tp_s, 256),
+              tp_vc.reshape(tp_b, 1, tp_s, 256)]
+    tp_n_vis = int((tp_lens + tp_t).sum())
+    rows.append((f"TP rank slot verify T={tp_t} B={tp_b} S={tp_s} per-row valid H=4 Hkv=1 D=256", 0,
+                 lambda i, a=tp_args: ca.decode_attention(*a, scale=256**-0.5),
+                 lambda i, a=tp_args: ca.decode_attention_plain(*a, scale=256**-0.5),
+                 lambda i, a=tp_lib, m=tp_mask: sdpa(*a, attn_mask=m, scale=256**-0.5),
+                 (2 * 2 * tp_b * tp_t * 4 * 256 + 2 * 2 * tp_n_vis * 256, 4 * 4 * int(tp_vis.sum()) * 256,
+                  "bf16")))
     result["decode_attention"] = _time_rows(torch, "decode_attention", rows,
                                             library="F.scaled_dot_product_attention (bf16 cache only)")
 
@@ -1232,6 +1336,13 @@ def phase_timing(torch, prompt_len):
           for m, what in ((33, "step"), (264, "verify k=8"))
           for o, d in ((2560, 2048), (2048, 2048), (32768, 2048), (2048, 16384))),
         q8_row("slot step lm_head M=33 O=257152 D=2048 fp32", 0, 33, 257152, 2048, f32=True),
+        # A tensor-parallel rank at model = 2 (phase 17), the int8 arm: qkv,
+        # gate_up and the vocab half column-parallel, o and down
+        # row-parallel with fp32 out.
+        *(q8_row(f"TP rank {what} M={m} O={o} D={d}{' fp32' if f32 else ''}", 0, m, o, d, f32=f32)
+          for m, what in ((1, "decode"), (prompt_len, "prefill"), (33, "slot step"), (264, "verify k=8"))
+          for o, d, f32 in ((1536, 2048, False), (2048, 1024, True), (16384, 2048, False), (2048, 8192, True))),
+        q8_row("TP rank decode lm_head M=1 O=128576 D=2048 fp32", 0, 1, 128576, 2048, f32=True),
     ], library="F.linear on the weight dequantized to bf16 ahead of time (bf16 out)")
     del q8_row
 
@@ -3524,6 +3635,420 @@ def _lora_http(torch, model, proc, cfg, trained, lcfg, adapter_dir):
     return {"adapters": health.get("adapters"), "same_as_in_process": got == ref.tokens}
 
 
+# Phase 17: tensor, data, sequence and pipeline parallelism on the one card.
+# Two ranks (processes) share the H100 over gloo: NCCL refuses two ranks on
+# one device. gloo runs its collectives on the host, so these times are not
+# a tensor-parallel speed; they show that the sharded code runs the kernels
+# at the per-rank shapes and agrees with the unsharded model.
+TP_RANKS = 2
+TP_DECODE_TIMED = 8  # sharded decode steps timed a request (host ms a token)
+TP_PIPE_MICRO = 2
+# Bars, stated before the first run (PERF.md, section 6), and why:
+# - logits of the sharded prefill against the unsharded one: row-parallel
+#   products reduced in fp32 and rounded once, other sums in another order;
+#   phase 5's bar (LOGIT_REL_TOL of the largest logit).
+# - one LoRA micro-step's adapter gradients against the unsharded step's:
+#   phase 15's bars (LORA_GRAD_COS, LORA_GRAD_GAP).
+# - the pipelined loss against the unsharded loss: the same bf16 programs
+#   on half the rows each (GEMMs of another M): within 0.5% of the loss.
+TP_PIPE_LOSS_RTOL = 5e-3
+
+
+def _tp_records(torch, model, proc, tok, cfg):
+    """The unsharded references of phase 17 in this process (the final norm
+    redrawn as in phase 7): per arm and request, the greedy tokens of
+    ``generate`` and the prefill's last-position logits."""
+    from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.models import paligemma
+
+    arms = {"bf16": model, "int8": quantization.quantize_params(model, llm_only=True, mode="int8")}
+    refs = {}
+    for arm, m in arms.items():
+        refs[arm] = []
+        for i in range(len(REQUESTS)):
+            ids, pix = _request(torch, proc, i)
+            toks, _ = generation.generate(m, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id)
+            cache = generation.make_cache(m, 1, ids.shape[1], 1)
+            with torch.no_grad():
+                lg, _ = paligemma.prefill(m, ids, pix, cache, full_logits=False)
+            refs[arm].append({"tokens": toks, "logits": lg[0, -1].float().cpu()})
+    return arms, refs
+
+
+def _tp_rank(cfg, batch, dp_rows, traffic, n_img):
+    """One rank of phase 17 (spawned; the card is shared): the seeded 3B
+    model made on the card (the final norm redrawn as in phase 7), then
+    each sharded path. Returns host-side results for the parent."""
+    import torch
+
+    from paligemma_tpu_torch import generation, lora, quantization
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.ops import _build, kernels
+    from paligemma_tpu_torch.parallel import pipeline, sharding, steps
+    from paligemma_tpu_torch.parallel.mesh import make_mesh
+    from paligemma_tpu_torch.processing import ByteTokenizer, PaliGemmaProcessor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _build.load_library()  # built by phase 2 before any rank started
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tok = ByteTokenizer()
+    proc = PaliGemmaProcessor(tok, cfg.vision_config.num_image_tokens, cfg.vision_config.image_size)
+    full = paligemma.init_params(cfg, SEED, device="cuda", dtype=torch.bfloat16)
+    norm = full.llm.final_norm.weight
+    gen = torch.Generator(device=dev).manual_seed(GREEDY_NORM_SEED)
+    with torch.no_grad():
+        norm.copy_(torch.randn(norm.shape, generator=gen, device=dev, dtype=torch.float32) - 1)
+    mesh = make_mesh(1, TP_RANKS, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": mesh.rank, "backend": mesh.backend, "arms": {}, "gloo_cuda": _gloo_cuda_table(torch, mesh)}
+
+    def counted(fn):
+        kernels.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: v for k, v in kernels.call_counts().items() if v}
+
+    # The sharded models: bf16 and int8, each rank's slices of the full one.
+    models = {"bf16": sharding.shard_params(full, cfg, mesh)}
+    out["bytes"] = {"bf16": (quantization.params_bytes(models["bf16"]), sharding.rank_bytes(full, cfg, TP_RANKS),
+                             quantization.params_bytes(full))}
+    q8 = quantization.quantize_params(full, llm_only=True, mode="int8")
+    models["int8"] = sharding.shard_params(q8, cfg, mesh)
+    out["bytes"]["int8"] = (quantization.params_bytes(models["int8"]), sharding.rank_bytes(q8, cfg, TP_RANKS),
+                            quantization.params_bytes(q8))
+    del q8
+    torch.cuda.empty_cache()
+    prefill, decode = steps.make_sharded_prefill(cfg, mesh), steps.make_sharded_decode(cfg, mesh)
+    for arm, m in models.items():
+        recs = []
+        for i in range(len(REQUESTS)):
+            ids, pix = _request(torch, proc, i)
+            (toks, _), gen_counts = counted(lambda: generation.generate(m, ids, pix, MAX_NEW_TOKENS, tok.eos_token_id))
+            cache = generation.make_cache(m, 1, ids.shape[1], TP_DECODE_TIMED)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lg, cache), pre_counts = counted(lambda: prefill(m, ids, pix, cache, full_logits=False))
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            step = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+            t0 = time.perf_counter()
+            for _ in range(TP_DECODE_TIMED):
+                dl, cache = decode(m, step, cache)
+                step = dl[:, -1].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / TP_DECODE_TIMED
+            recs.append({"tokens": toks, "logits": lg[0, -1].float().cpu(), "generate_counts": gen_counts,
+                         "prefill_counts": pre_counts, "prefill_ms": prefill_ms, "decode_ms": decode_ms})
+        out["arms"][arm] = recs
+    del models["int8"]
+    tp = models["bf16"]
+    torch.cuda.empty_cache()
+
+    # (2, 1): data parallel, one row a rank.
+    dp_mesh = make_mesh(TP_RANKS, 1, device="cuda")
+    dp = sharding.shard_params(full, cfg, dp_mesh)
+    ids, pix = (sharding.shard_batch(x.to(dev), dp_mesh) for x in dp_rows)
+    cache = generation.make_cache(dp, ids.shape[0], ids.shape[1], 1)
+    lg, _ = steps.make_sharded_prefill(cfg, dp_mesh)(dp, ids, pix, cache, full_logits=False)
+    out["dp"] = {"data_rank": dp_mesh.data_rank, "logits": lg[:, -1].float().cpu()}
+    del dp
+
+    # One DP x TP LoRA micro-step at (1, 2) that only accumulates: the
+    # optimizer state's mean is the step's gradient.
+    lcfg = lora.LoraConfig(r=LORA_R, alpha=LORA_ALPHA, dropout=0.0)
+    probe = _lora_probe(torch, cfg, lcfg, dev)
+    ad = sharding.shard_lora(probe, cfg, mesh)
+    train = steps.make_sharded_train_step(cfg, lcfg, lora.default_optimizer(lr=LORA_LR, accum_steps=2), mesh)
+    state = train.optimizer.init(ad)
+    rows = lora.batch_to(batch, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, ad, state), train_counts = counted(lambda: train(tp, ad, state, rows))
+    out["train"] = {"loss": float(loss), "acc": [g.float().cpu() for g in state["acc"]],
+                    "counts": train_counts, "ms": (time.perf_counter() - t0) * 1e3}
+    del probe, ad, state
+
+    # A 2-stage pipeline of the full model's layers: the loss on the LoRA batch.
+    pmesh = pipeline.make_pipe_mesh(TP_RANKS, device="cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ploss, pipe_counts = counted(lambda: pipeline.pipelined_loss_fn(
+            full, cfg, rows["input_ids"], rows["pixel_values"], rows["labels"], pmesh, TP_PIPE_MICRO))
+    out["pipe"] = {"stage": pmesh.stage, "loss": float(ploss), "host_copies": pmesh.group.host_copies,
+                   "counts": pipe_counts, "ms": (time.perf_counter() - t0) * 1e3}
+
+    # The continuous engine over the TP model (phase 14's identity traffic).
+    eng = ContinuousBatcher(tp, proc, n_slots=CONT_SLOTS, chunk=CONT_CHUNK, max_new_tokens=CONT_MAX_NEW,
+                            prompt_budget=[n_img + e for e in CONT_EXTRA_BUCKETS], seed=SEED)
+    t0 = time.perf_counter()
+    reqs, eng_counts = _run_engine(torch, eng, traffic)
+    eng.close()
+    out["engine"] = {"tokens": [r.tokens for r in reqs], "counts": eng_counts,
+                     "graphs": len(eng.graph_log), "ms": (time.perf_counter() - t0) * 1e3}
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def _gloo_cuda_table(torch, mesh):
+    """What PyTorch's gloo backend does with CUDA tensors (its backend table
+    lists only broadcast and all_reduce): each collective the sharded code
+    could use, tried once on the model group. Every rank takes the same
+    branch, so a collective that raises raises on every rank before any
+    message. ``comm.py`` routes by the backend, never by these tries."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.full((4,), float(mesh.rank + 1), device=dev)
+    tries = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=mesh.model_group.pg),
+        "broadcast": lambda: dist.broadcast(x.clone(), mesh.model_group.ranks[0], group=mesh.model_group.pg),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty(4 * TP_RANKS), x, group=mesh.model_group.pg),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty(4 // TP_RANKS), x, group=mesh.model_group.pg),
+    }
+    table = {}
+    for name, run in tries.items():
+        try:
+            run()
+            torch.cuda.synchronize()
+            table[name] = "runs"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            table[name] = f"raises {type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    return table
+
+
+def _lora_probe(torch, cfg, lcfg, dev):
+    """Phase 15's probe adapter: seeded A, B seeded non-zero (at B = 0 the
+    gradient of A is zero)."""
+    from paligemma_tpu_torch import lora
+
+    probe = lora.init_lora(cfg, lcfg, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    bgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for mod in probe["layers"].values():
+        mod["b"].normal_(0.0, 0.01, generator=bgen)
+    return probe
+
+
+def phase_parallel(torch, model, proc, tok, cfg, main_counts):
+    """Phase 17 (the final norm redrawn as in phase 7): the sharded paths on
+    TP_RANKS ranks over gloo, held to the unsharded model in this process;
+    then a world-size-1 NCCL group's sharded decode as a CUDA graph."""
+    with _tokens_that_change(torch, model):
+        return _phase_parallel(torch, model, proc, tok, cfg, main_counts)
+
+
+def _phase_parallel(torch, model, proc, tok, cfg, main_counts):
+    from paligemma_tpu_torch import generation, lora
+    from paligemma_tpu_torch.continuous import ContinuousBatcher
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.parallel import comm, sharding
+    from paligemma_tpu_torch.parallel.mesh import Mesh, spawn
+
+    tag = "[parallel]"
+    dev = torch.device("cuda")
+    n_img = cfg.vision_config.num_image_tokens
+    t0 = time.perf_counter()
+    arms, refs = _tp_records(torch, model, proc, tok, cfg)
+    batch = _lora_batch(torch, proc, cfg)
+    traffic = _cont_traffic()
+    (ids0, pix0), (_, pix1) = _request(torch, proc, 0), _request(torch, proc, 1)
+    dp_rows = (torch.cat([ids0, ids0]).cpu(), torch.cat([pix0, pix1]).cpu())
+    log(f"{tag} unsharded references in {time.perf_counter() - t0:.1f} s; spawning {TP_RANKS} ranks on the "
+        f"one card over gloo (NCCL refuses two ranks on one device)")
+    t0 = time.perf_counter()
+    ranks = spawn(_tp_rank, TP_RANKS, "gloo", "cuda", cfg, batch, dp_rows, traffic, n_img, timeout_s=300)
+    log(f"{tag} ranks done in {time.perf_counter() - t0:.1f} s (process start, model init on the card, every "
+        f"path below)")
+    record = {"ranks": TP_RANKS, "backend": ranks[0]["backend"], "gloo_cuda": ranks[0]["gloo_cuda"]}
+    check(all(r["backend"] == "gloo" for r in ranks), f"{tag} the ranks' groups are not gloo")
+    log(f"{tag} gloo with CUDA tensors (rank 0; comm.py routes gathers and scatters through all_reduce and "
+        f"point-to-point through host copies whatever this says): {ranks[0]['gloo_cuda']}")
+
+    # Bytes a rank holds: the rules' count.
+    for arm in ("bf16", "int8"):
+        for r in ranks:
+            got, want, whole = r["bytes"][arm]
+            log(f"{tag} rank {r['rank']} {arm} parameter bytes {got} (the rules' count {want}; the whole model "
+                f"{whole}, {got / whole:.3f} of it)")
+            check(got == want, f"{tag} rank {r['rank']} {arm}: {got} bytes, the rules give {want}")
+    record["bytes"] = {arm: ranks[0]["bytes"][arm] for arm in ("bf16", "int8")}
+
+    # Prefill logits and greedy tokens, each arm and request, each rank.
+    n_l, n_v = cfg.text_config.num_hidden_layers, cfg.vision_config.num_hidden_layers
+    record["arms"] = {}
+    for arm, m in arms.items():
+        cache_dtype = None
+        for i, ref in enumerate(refs[arm]):
+            for r in ranks:
+                got = r["arms"][arm][i]
+                err = float((got["logits"] - ref["logits"]).abs().max())
+                bar = LOGIT_REL_TOL * float(ref["logits"].abs().max())
+                div = _held_to_batch1(torch, m, proc, f"{tag} {arm} rank {r['rank']}", REQUESTS[i][0],
+                                      _request_image(i), got["tokens"], ref["tokens"], cache_dtype)
+                n_tok = len(got["tokens"])
+                gc_, pc = got["generate_counts"], got["prefill_counts"]
+                want_gen = {"flash_attention": n_v + n_l, "decode_attention": n_l * (n_tok - 1)}
+                want_pre = {"flash_attention": n_v + n_l}
+                if arm == "int8":
+                    want_gen["q8_matmul"] = (4 * n_l + 1) * n_tok
+                    want_pre["q8_matmul"] = 4 * n_l + 1
+                log(f"{tag} {arm} rank {r['rank']} request {i}: prefill last logits max_abs_err {err:.3e} (bar "
+                    f"{bar:.3e}) | {n_tok} tokens, first difference from the unsharded model "
+                    f"{'none' if div is None else div} | launches generate {gc_} (expect {want_gen}) prefill "
+                    f"{pc} | host ms: prefill {got['prefill_ms']:.1f}, decode {got['decode_ms']:.2f} a token "
+                    f"(gloo on one card, not a TP speed)")
+                check(err <= bar, f"{tag} {arm} rank {r['rank']} request {i}: sharded logits off the bar")
+                check(gc_ == want_gen and pc == want_pre,
+                      f"{tag} {arm} rank {r['rank']} request {i}: launches {gc_} / {pc}, expected "
+                      f"{want_gen} / {want_pre}")
+                for k, v in gc_.items():
+                    main_counts[k] += v
+        record["arms"][arm] = {
+            "prefill_host_ms": [[r["arms"][arm][i]["prefill_ms"] for i in range(len(REQUESTS))] for r in ranks],
+            "decode_host_ms_per_token": [[r["arms"][arm][i]["decode_ms"] for i in range(len(REQUESTS))]
+                                         for r in ranks]}
+    del arms
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2, 1): each data rank's row against the unsharded batch's.
+    ids2, pix2 = dp_rows[0].to(dev), dp_rows[1].to(dev)
+    with torch.no_grad():
+        whole, _ = paligemma.prefill(model, ids2, pix2, generation.make_cache(model, 2, ids2.shape[1], 1),
+                                     full_logits=False)
+    whole = whole[:, -1].float().cpu()
+    for r in ranks:
+        row = whole[r["dp"]["data_rank"]:r["dp"]["data_rank"] + 1]
+        err = float((r["dp"]["logits"] - row).abs().max())
+        bar = LOGIT_REL_TOL * float(row.abs().max())
+        log(f"{tag} (2, 1) data rank {r['dp']['data_rank']}: its row's last logits against the unsharded batch's "
+            f"max_abs_err {err:.3e} (bar {bar:.3e}), bit-identical {torch.equal(r['dp']['logits'], row)}, "
+            f"argmax equal {int(r['dp']['logits'].argmax()) == int(row.argmax())}")
+        check(err <= bar, f"{tag} (2, 1) data rank {r['dp']['data_rank']}: row off the unsharded batch's")
+
+    # The LoRA micro-step's gradients against the unsharded step's.
+    lcfg = lora.LoraConfig(r=LORA_R, alpha=LORA_ALPHA, dropout=0.0)
+    probe = _lora_probe(torch, cfg, lcfg, dev)
+    opt = lora.default_optimizer(lr=LORA_LR, accum_steps=2)
+    state = opt.init(probe)
+    rows = lora.batch_to(batch, dev)
+    loss, probe, state = lora.train_step(model, probe, state, rows, None, lcfg, opt)
+    full_acc = dict(zip(("k.a", "k.b", "q.a", "q.b", "v.a", "v.b"), state["acc"]))
+    g = comm.Group(None, [0])
+    for r in ranks:
+        mesh = Mesh(1, TP_RANKS, r["rank"], dev, g, g)
+        want = sharding.shard_lora({"layers": {n: {x: full_acc[f"{n}.{x}"] for x in "ab"} for n in "qkv"}},
+                                   cfg, mesh)
+        want = [want["layers"][n][x].float().cpu() for n in "kqv" for x in "ab"]
+        cos, gap = _cos_gap(torch, torch.cat([x.flatten() for x in r["train"]["acc"]]),
+                            torch.cat([x.flatten() for x in want]))
+        counts = r["train"]["counts"]
+        log(f"{tag} LoRA micro-step (1, 2) B=2 T=320 rank {r['rank']}: loss {r['train']['loss']:.6f} vs "
+            f"unsharded {float(loss):.6f} | gradients cosine {cos:.7f} (bar {LORA_GRAD_COS}), norm gap {gap:.2e} "
+            f"(bar {LORA_GRAD_GAP}) | launches {counts} | host {r['train']['ms']:.1f} ms")
+        check(cos >= LORA_GRAD_COS and gap <= LORA_GRAD_GAP, f"{tag} rank {r['rank']}: sharded gradients are off")
+        check(abs(r["train"]["loss"] - float(loss)) <= TP_PIPE_LOSS_RTOL * abs(float(loss)),
+              f"{tag} rank {r['rank']}: sharded loss is off")
+        check(counts.get("flash_attention") == n_v + n_l and set(counts) == {"flash_attention"},
+              f"{tag} rank {r['rank']}: a micro-step launched {counts}")
+        main_counts["flash_attention"] += counts["flash_attention"]
+    record["train"] = {"loss": [r["train"]["loss"] for r in ranks], "unsharded_loss": float(loss),
+                       "host_ms": [r["train"]["ms"] for r in ranks]}
+    del probe, state, full_acc
+
+    # The pipelined loss against the unsharded one.
+    with torch.no_grad():
+        ref_loss = float(paligemma.loss_fn(model, rows["input_ids"], rows["pixel_values"], rows["labels"]))
+    for r in ranks:
+        p = r["pipe"]
+        log(f"{tag} pipeline stage {p['stage']} of {TP_RANKS} ({TP_PIPE_MICRO} microbatches of the LoRA batch): "
+            f"loss {p['loss']:.6f} vs unsharded {ref_loss:.6f} | host copies of the gloo point-to-point "
+            f"{p['host_copies']} | launches {p['counts']} | host {p['ms']:.1f} ms")
+        check(abs(p["loss"] - ref_loss) <= TP_PIPE_LOSS_RTOL * abs(ref_loss), f"{tag} pipelined loss is off")
+        main_counts["flash_attention"] += p["counts"].get("flash_attention", 0)
+    record["pipe"] = {"loss": [r["pipe"]["loss"] for r in ranks], "unsharded_loss": ref_loss,
+                      "host_copies": [r["pipe"]["host_copies"] for r in ranks]}
+
+    # The TP engine against the unsharded engine (phase 10's near-tie rule
+    # where they part).
+    eng = ContinuousBatcher(model, proc, n_slots=CONT_SLOTS, chunk=CONT_CHUNK, max_new_tokens=CONT_MAX_NEW,
+                            prompt_budget=[n_img + e for e in CONT_EXTRA_BUCKETS], seed=SEED)
+    base, _ = _run_engine(torch, eng, traffic)
+    eng.close()
+    base = [q.tokens for q in base]
+    same = 0
+    for r in ranks:
+        for (p, im, n), got, ref in zip(traffic, r["engine"]["tokens"], base):
+            if got == ref:
+                same += 1
+                continue
+            b1 = generation.generate(model, *_inputs_of(torch, model, proc, p, im), n, tok.eos_token_id)[0]
+            _held_to_batch1(torch, model, proc, f"{tag} engine rank {r['rank']}", p, im, got, b1, None)
+        log(f"{tag} engine rank {r['rank']} ({CONT_SLOTS} slots, chunk {CONT_CHUNK}, {len(traffic)} requests, "
+            f"eager over gloo, {r['engine']['graphs']} graphs): launches {r['engine']['counts']} | host "
+            f"{r['engine']['ms']:.0f} ms")
+        check(r["engine"]["graphs"] == 0, f"{tag} the engine captured a graph over gloo")
+        for k, v in r["engine"]["counts"].items():
+            main_counts[k] += v
+    log(f"{tag} engine: {same} of {len(traffic) * TP_RANKS} requests token-identical to the unsharded engine")
+    record["engine_identical"] = same
+    record["peak_mib"] = [r["peak_mib"] for r in ranks]
+    log(f"{tag} peak device MiB a rank {record['peak_mib']}")
+    record["nccl_graph"] = _nccl_graph(torch, model, proc, cfg)
+    return record
+
+
+def _nccl_graph(torch, model, proc, cfg):
+    """A world-size-1 NCCL group in this process: the sharded decode of the
+    1 x 1 model (its collectives inside) captured as a CUDA graph, whose
+    replay is bit for bit the eager step from the same cache."""
+    import torch.distributed as dist
+
+    from paligemma_tpu_torch import generation
+    from paligemma_tpu_torch.models import paligemma
+    from paligemma_tpu_torch.parallel import comm, sharding, steps
+    from paligemma_tpu_torch.parallel.mesh import free_port, make_mesh
+
+    tag = "[parallel nccl]"
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        one = sharding.shard_params(model, cfg, mesh)
+        check(mesh.backend == "nccl" and comm.capturable(one), f"{tag} the group is not a capturable NCCL group")
+        ids, pix = _request(torch, proc, 0)
+        cache = generation.make_cache(one, 1, ids.shape[1], 4)
+        lg, cache = steps.make_sharded_prefill(cfg, mesh)(one, ids, pix, cache, full_logits=False)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        saved = {f: getattr(cache, f).clone() for f in ("k", "v", "length", "valid")}
+        host = cache.host_length
+
+        def restore():
+            for f, t in saved.items():
+                getattr(cache, f).copy_(t)
+            cache.host_length = host
+
+        with torch.no_grad():
+            eager = paligemma.decode_step(one, tok, cache)[0].clone()
+        restore()
+        decode = steps.make_sharded_decode(cfg, mesh)
+        first = decode(one, tok, cache)[0]  # captures, then replays
+        restore()
+        again = decode(one, tok, cache)[0]
+        torch.cuda.synchronize()
+        graphs = [k for k in cache.graphs if k[0] == "sharded-decode"]
+        same = torch.equal(first, eager) and torch.equal(again, eager)
+        log(f"{tag} world size 1, backend {mesh.backend}: the sharded decode captured as a CUDA graph "
+            f"({len(graphs)} graph, its all-reduces and the logits' all-gather inside) | replay bit for bit the "
+            f"eager step: {same} (twice)")
+        check(len(graphs) == 1 and same, f"{tag} the captured sharded decode is not the eager step")
+        return {"captured": len(graphs), "bit_identical": same}
+    finally:
+        dist.destroy_process_group()
+
+
 KERNEL_TABLE = [
     # name, source, the TPU kernel it replaces
     ("flash_attention", "paligemma_tpu_torch/csrc/flash_attention.cu", "paligemma_tpu/ops/pallas_attention.py:100"),
@@ -3573,6 +4098,7 @@ def main() -> int:
         log(f"[lora train] {json.dumps(train_rec)}")
         serve_rec = phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts)
         log(f"[lora serving] {json.dumps(serve_rec, default=str)}")
+    log(f"[parallel] {json.dumps(phase_parallel(torch, model, proc, tok, cfg, main_counts), default=str)}")
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
     kernels = []

@@ -49,6 +49,15 @@ reach the captured join prefill through static buffers of its runner.
 Registered adapters have their scale folded into b and are zero-padded to
 the engine's rank.
 
+Tensor parallelism: the model may be a rank's tensor-parallel model
+(``parallel.sharding.shard_params``). Every rank of its model group runs
+the same engine on the same requests: the logits are gathered to every
+rank, so the host's decisions (tokens, joins, evictions, the speculative
+policy) are the same on each, and the sampling generators are seeded
+alike. Its cache holds the rank's kv heads (``model.cfg`` is the rank's).
+Over gloo nothing is captured (``generation.graphs_on``): the steps and
+join prefills run eagerly; over NCCL as on one card.
+
 Captures run in ``thread_local`` mode and under the engine's device lock,
 which the prefetch worker's staged uploads also take. Staged uploads go
 through pinned host memory on a side stream with an event that the
@@ -250,7 +259,7 @@ class _SlotRunner(generation._Captured):
         self.step = step
         self.generators = (None, None)
         self.mib = 0.0
-        if engine.device.type == "cuda":
+        if engine.graphs:
             dev = engine.device
             self.generators = tuple(torch.Generator(device=dev) if u else None for u in uses)
             targets = engine.state.tensors() + [cache.valid]
@@ -315,7 +324,7 @@ class _JoinPrefill(generation._Captured):
             for name, ad in self.lora.items():
                 for x, buf in ad.items():
                     buf.copy_(grouped[name][x])
-        if engine.device.type != "cuda":
+        if not engine.graphs:
             return self._run(engine.model)
         if self.graph is None:
             out = {}
@@ -388,7 +397,8 @@ class ContinuousBatcher:
     ``ContinuousBatcher``).
 
     Args:
-      model: a ``PaliGemma`` on its device (the engine runs where it is).
+      model: a ``PaliGemma`` on its device (the engine runs where it is),
+        or a rank's tensor-parallel model (every rank runs the engine).
       processor: a ``PaliGemmaProcessor``.
       n_slots: decode batch width (one trash row rides along).
       prompt_budget: an int, or prompt buckets: a join group prefills at the
@@ -573,7 +583,10 @@ class ContinuousBatcher:
         # one memory pool for all of them (they run one after another on
         # one stream and keep their results in static buffers), and a log
         # of each capture: key, ms, MiB the pool grew by.
-        self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        # No graph of a model sharded over gloo (generation.graphs_on): its
+        # steps run eagerly.
+        self.graphs = generation.graphs_on(model, dev)
+        self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._steps: Dict[tuple, _SlotRunner] = {}
         self._prefills: Dict[tuple, _JoinPrefill] = {}
         self.graph_log: List[dict] = []
@@ -681,8 +694,9 @@ class ContinuousBatcher:
         on its empty state: the join prefill of each prompt bucket at group
         batch 1 and n_slots, and the step of every window and chunk flavour
         (plain; each speculative rung), greedy and sampled. Nothing on the
-        CPU. Returns the captures' host ms."""
-        if self.device.type != "cuda":
+        CPU, nor for a model sharded over gloo. Returns the captures' host
+        ms."""
+        if not self.graphs:
             return 0.0
         t0 = time.perf_counter()
         size = self.cfg.vision_config.image_size

@@ -80,6 +80,7 @@ from paligemma_tpu_torch.models.paligemma import PaliGemma
 from paligemma_tpu_torch.ops import kernels
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 from paligemma_tpu_torch.ops.sampling import select_token_traced
+from paligemma_tpu_torch.parallel import comm
 
 Scalar = Union[float, torch.Tensor]
 
@@ -143,6 +144,14 @@ def _pooled_cache(
     slot[2] = weakref.ref(cache)
     slots.append(slot)
     return cache
+
+
+def graphs_on(model: PaliGemma, device) -> bool:
+    """Whether the runners capture CUDA graphs of ``model`` on ``device``:
+    on a CUDA device, unless the model is sharded over a group whose
+    collectives cannot be captured (gloo; ``parallel.comm.capturable``),
+    where they run eagerly."""
+    return torch.device(device).type == "cuda" and comm.capturable(model)
 
 
 def _buffers(cache: KVCache) -> tuple:
@@ -238,7 +247,7 @@ class _PrefillRunner(_Captured):
 
     def run(self, model: PaliGemma, cache: KVCache, input_ids: torch.Tensor,
             pixel_values: torch.Tensor) -> torch.Tensor:
-        if cache.k.device.type != "cuda":
+        if not graphs_on(model, cache.k.device):
             return _prefill(model, input_ids, pixel_values, cache, self.fns)
         if cache.host_length:  # the graph writes the rows from 0 on
             raise ValueError("prefill (T > 1) needs an empty cache")
@@ -303,7 +312,7 @@ def prepare_prefill(
     ``host_length`` 0. Returns the capture's host ms, warm-up prefill
     included (0.0 when nothing was captured: a CPU cache, or a graph of
     these shapes already)."""
-    if cache.k.device.type != "cuda":
+    if not graphs_on(model, cache.k.device):
         return 0.0
     pix_dtype = model.vision.patch_embedding.weight.dtype
     runner = _prefill_runner(model, cache, fns, input_ids_shape, pixel_values_shape, pix_dtype)
@@ -372,7 +381,7 @@ class _DecodeRunner(_Captured):
             done=torch.zeros(b, dtype=torch.bool, device=dev),
         )
         self.do_sample, self.freeze = do_sample, freeze
-        if dev.type == "cuda":
+        if graphs_on(model, dev):
             if do_sample:  # a generator of the graph's own, registered with it
                 self.state.generator = torch.Generator(device=dev)
             # The warm-up step is undone: the cache's length is put back.
@@ -788,7 +797,7 @@ class _SpecRunner(_Captured):
                                 temperature=zeros((1, 1), torch.float32),
                                 top_p=zeros((1, 1), torch.float32))
         self.k, self.n, self.drafter, self.do_sample = k, n, drafter, do_sample
-        if dev.type == "cuda":
+        if graphs_on(model, dev):
             if cache.host_length + k > cache.max_len:  # the warm-up writes k rows
                 raise ValueError(f"cache full: {cache.host_length} + {k} > {cache.max_len}")
             if do_sample:  # a generator of the graph's own, registered with it

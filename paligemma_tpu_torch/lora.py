@@ -214,7 +214,7 @@ class AdapterOptimizer:
         if not self.applies(state):
             return
         acc = state["acc"]
-        norm = torch.sqrt(sum((g * g).sum() for g in acc))
+        norm = torch.sqrt(self.sq_norm(acc))
         keep = norm < self.max_norm
         for p, g, mu, nu in zip(adapter_leaves(lora), acc, state["mu"], state["nu"]):
             g = torch.where(keep, g, (g / norm) * self.max_norm)
@@ -226,6 +226,12 @@ class AdapterOptimizer:
             p.add_(-self.lr * u)
         for g in acc:
             g.zero_()
+
+    def sq_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The clip's squared global norm of ``grads`` (``adapter_leaves``
+        order), a 0-d device tensor (a sharded optimizer sums the squares
+        of its shards over the model group, ``parallel/steps.py``)."""
+        return sum((g * g).sum() for g in grads)
 
     def update(self, grads: Sequence[torch.Tensor], state: dict, lora: Adapter) -> dict:
         """One call, eagerly: ``set_scalars``, then ``apply``; returns the
@@ -347,7 +353,8 @@ class TrainStep:
     ``jax.jit(step)``: ``step(model, lora, opt_state, batch, generator) ->
     (loss, lora, opt_state)``, ``train_step``'s arithmetic.
 
-    - On a CPU batch it is ``train_step``, run eagerly.
+    - On a CPU batch it is ``train_step``, run eagerly; so on a CUDA
+      batch with a model sharded over gloo (``generation.graphs_on``).
     - On a CUDA batch it replays a CUDA graph: one per (batch shapes and
       dtypes, flavour), the flavours being the micro-step that only
       accumulates and the one that also takes the AdamW step (the host
@@ -367,8 +374,12 @@ class TrainStep:
       the eager step.
     """
 
-    def __init__(self, lcfg: LoraConfig, optimizer: AdapterOptimizer, train: bool = True):
+    def __init__(self, lcfg: LoraConfig, optimizer: AdapterOptimizer, train: bool = True,
+                 on_device: Optional[Callable[..., torch.Tensor]] = None):
         self.lcfg, self.optimizer, self.train = lcfg, optimizer, train
+        # What a micro-step runs on the device (``_step_on_device``'s
+        # arguments and result; the sharded step's, parallel/steps.py).
+        self.on_device = on_device or _step_on_device
         self.graphs: Dict[tuple, _StepGraph] = {}
         self.inputs: Dict[tuple, _Inputs] = {}
         self.pool = None
@@ -377,8 +388,10 @@ class TrainStep:
     def __call__(self, model: PaliGemma, lora: Adapter, opt_state: dict, batch: dict,
                  generator: Optional[torch.Generator] = None):
         dev = batch["input_ids"].device
-        if dev.type != "cuda":
-            return train_step(model, lora, opt_state, batch, generator, self.lcfg, self.optimizer, self.train)
+        if not generation.graphs_on(model, dev):
+            self.optimizer.set_scalars(opt_state, dev)
+            loss = self.on_device(model, lora, opt_state, batch, generator, self.lcfg, self.optimizer, self.train)
+            return loss, lora, self.optimizer.advance(opt_state)
         gen = generator if self.train and self.lcfg.dropout > 0 else None
         bkey = _batch_key(batch)
         key = (bkey, self.optimizer.applies(opt_state))
@@ -392,8 +405,8 @@ class TrainStep:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
             graph = _StepGraph(model, lora, opt_state, gen)
-            graph.capture(lambda: _step_on_device(model, lora, opt_state, static, gen, self.lcfg,
-                                                  self.optimizer, self.train), dev, self.pool)
+            graph.capture(lambda: self.on_device(model, lora, opt_state, static, gen, self.lcfg,
+                                                 self.optimizer, self.train), dev, self.pool)
             self.graphs[key] = graph
             self.log.append({"key": key, "ms": graph.capture_ms, "mib": graph.mib})
         graph._replay()

@@ -69,12 +69,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from paligemma_tpu_torch import quantization
 from paligemma_tpu_torch.config import GemmaConfig
 from paligemma_tpu_torch.ops.attention import LengthMask
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 from paligemma_tpu_torch.ops.quant import MLP_FUSED_MAX_ROWS, geglu, quantize_rows_s8_rcp
 from paligemma_tpu_torch.ops.norms import rms_norm
 from paligemma_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from paligemma_tpu_torch.parallel import comm
 from paligemma_tpu_torch.quantization import Q4Linear, QLinear, W4A8Linear, qproj
 
 
@@ -162,6 +164,46 @@ def proj(x: torch.Tensor, w: nn.Module, fns: KernelFns) -> torch.Tensor:
     return F.linear(x, w.weight)
 
 
+def row_parallel(x: torch.Tensor, w: nn.Module, fns: KernelFns, tp: comm.ModelParallel,
+                 seq: bool = False) -> torch.Tensor:
+    """A row-parallel product under TP (x and w hold this rank's slice of
+    the contraction): the partial products reduced over the model group
+    (reduce-scattered along T with ``seq``) in fp32 and rounded once to
+    x.dtype, as the whole product is rounded once. An int8 x int8 call
+    (``prefill_a8``) reduces the rows' absmax (a max) and its int32 sums
+    (exact), so every rank gets the whole product's bits. ``w``: float,
+    int8 or int4 (not bias-added)."""
+    if isinstance(w, QLinear) and w.prefill_a8 and x.shape[-2] >= quantization.A8_MIN_SEQ:
+        if seq:
+            raise ValueError("sequence parallelism does not take prefill_a8 products")
+        g = tp.group
+        return fns.a8(x, w.weight, w.scale, amax_reduce=lambda a: comm.all_reduce_max(a, g),
+                      acc_reduce=lambda a: comm.all_reduce(a, g))
+    if isinstance(w, QLinear):
+        y = fns.q8(x, w.weight, w.scale, out_dtype=torch.float32)
+    elif isinstance(w, Q4Linear):
+        y = fns.q4(x, w.packed, w.scale, out_dtype=torch.float32)
+    else:
+        y = wide_linear(x, w.weight)
+    return tp.leave(y, seq).to(x.dtype)
+
+
+def wide_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w^T`` accumulated and returned in fp32 (..., O) without
+    rounding through x.dtype: on CUDA ``torch.mm(..., out_dtype=float32)``
+    from the bf16 operands (under autograd ``_WideLogits``, which gives it
+    a gradient for x); elsewhere the operands are widened."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda and x2.dtype != torch.float32:
+        if torch.is_grad_enabled() and x2.requires_grad:
+            out = _WideLogits.apply(x2, w)
+        else:
+            out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float().t()
+    return out.reshape(*x.shape[:-1], w.shape[0])
+
+
 def lora_delta(
     x: torch.Tensor,
     a: torch.Tensor,
@@ -206,25 +248,40 @@ class GemmaLayer(nn.Module):
         self.post_ln = RMSNorm(d, cfg.rms_norm_eps, dtype)
         self.gate_up = nn.Linear(d, 2 * i, bias=False, dtype=dtype)  # fused gate | up
         self.down = nn.Linear(i, d, bias=False, dtype=dtype)
+        # Tensor parallelism (parallel/sharding.py): the collectives around
+        # the attention's and the MLP's products (None: unsharded). Where
+        # the kv weights are replicated over the model group, qkv holds
+        # all ``kv_weight_heads`` kv heads and this rank keeps the
+        # ``cfg.num_key_value_heads`` from ``kv_first`` on, those its query
+        # heads read.
+        self.attn_tp: Optional[comm.ModelParallel] = None
+        self.mlp_tp: Optional[comm.ModelParallel] = None
+        self.kv_weight_heads, self.kv_first = hkv, 0
 
     def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
                   mask: Optional[LengthMask] = None, multi_decode: bool = False, lora=None,
                   lora_scale: float = 1.0, lora_dropout: float = 0.0,
-                  lora_generator: Optional[torch.Generator] = None):
+                  lora_generator: Optional[torch.Generator] = None, seq: bool = False):
         """``pos``: the write positions, (T,) int64 shared by every row, or
         a pair of (B, T) int64 row and position indices (per-row lengths).
         ``lora``: this layer's adapters, ``{"q"|"k"|"v": (a, b)}``; each
-        target draws its own dropout mask, in the order q, k, v."""
-        cfg = self.cfg
+        target draws its own dropout mask, in the order q, k, v. ``seq``:
+        x is this rank's T shard (sequence parallelism)."""
+        cfg, tp = self.cfg, self.attn_tp
+        if tp is not None:
+            x = tp.enter(x, seq)
         b, t, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-        q, k, v = proj(x, self.qkv, fns).split([h * hd, hkv * hd, hkv * hd], dim=-1)
+        hkv_w = self.kv_weight_heads
+        q, k, v = proj(x, self.qkv, fns).split([h * hd, hkv_w * hd, hkv_w * hd], dim=-1)
         if lora is not None:
             q, k, v = (y + lora_delta(x, *lora[name], lora_scale, lora_dropout, lora_generator)
                        for name, y in zip(LORA_TARGETS, (q, k, v)))
+        k, v = k.view(b, t, hkv_w, hd), v.view(b, t, hkv_w, hd)
+        if hkv_w != hkv:  # replicated kv weights: keep this rank's kv heads
+            k, v = (y[:, :, self.kv_first:self.kv_first + hkv].contiguous() for y in (k, v))
         q = apply_rope(q.view(b, t, h, hd), cos, sin)
-        k = apply_rope(k.view(b, t, hkv, hd), cos, sin)
-        v = v.view(b, t, hkv, hd)
+        k = apply_rope(k, cos, sin)
         scale = hd**-0.5
         window = {} if mask is None else {
             "valid_len": mask.valid, "gen_start": mask.gen_start, "gen_end": mask.gen_end}
@@ -241,28 +298,41 @@ class GemmaLayer(nn.Module):
             if t == 1 or multi_decode:  # over the cache (a verify step: T queries)
                 window = {"valid_len": cache.valid, **window}
                 out = fns.decode(q, cache.k[li], cache.v[li], scale=scale, **window, **row_scales)
-                return proj(out.reshape(b, t, h * hd), self.o, fns)
+                return self._out(out.reshape(b, t, h * hd), fns, seq)
         # Prefill, or the pass without a cache: bidirectional over the fresh,
         # unquantized K/V only (exact: nothing else is visible yet), under
         # the per-row mask when there is one (right-padded rows).
         out = fns.flash(q, k, v, scale=scale, **window)
-        return proj(out.reshape(b, t, h * hd), self.o, fns)
+        return self._out(out.reshape(b, t, h * hd), fns, seq)
 
-    def mlp(self, x: torch.Tensor, fns: KernelFns) -> torch.Tensor:
+    def _out(self, attn: torch.Tensor, fns: KernelFns, seq: bool) -> torch.Tensor:
+        """The o projection (row-parallel under TP)."""
+        if self.attn_tp is None:
+            return proj(attn, self.o, fns)
+        return row_parallel(attn, self.o, fns, self.attn_tp, seq)
+
+    def mlp(self, x: torch.Tensor, fns: KernelFns, seq: bool = False) -> torch.Tensor:
+        """The GeGLU MLP; under TP gate_up is column-parallel (each rank its
+        gate half and the matching up half) and down row-parallel. The w4a8
+        fused MLP's weights stay whole on every rank (as the reference's),
+        so its calls need no collective."""
         gu_w, dn_w = self.gate_up, self.down
         if isinstance(gu_w, W4A8Linear):
             if x.shape[0] * x.shape[1] <= MLP_FUSED_MAX_ROWS:
                 return fns.mlp_w4a8(x, gu_w.packed, gu_w.scale, dn_w.packed, dn_w.scale)
             gu_w, dn_w = self.gate_up_i8, self.down_i8  # matrix-shaped calls
-        return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
+        tp = self.mlp_tp
+        if tp is None:
+            return proj(geglu(proj(x, gu_w, fns)), dn_w, fns)
+        return row_parallel(geglu(proj(tp.enter(x, seq), gu_w, fns)), dn_w, fns, tp, seq)
 
     def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
                 mask: Optional[LengthMask] = None, multi_decode: bool = False, lora=None,
                 lora_scale: float = 1.0, lora_dropout: float = 0.0,
-                lora_generator: Optional[torch.Generator] = None):
+                lora_generator: Optional[torch.Generator] = None, seq: bool = False):
         h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask, multi_decode,
-                               lora, lora_scale, lora_dropout, lora_generator)
-        return h + self.mlp(self.post_ln(h), fns)
+                               lora, lora_scale, lora_dropout, lora_generator, seq)
+        return h + self.mlp(self.post_ln(h), fns, seq)
 
 
 class GemmaModel(nn.Module):
@@ -276,6 +346,11 @@ class GemmaModel(nn.Module):
         # copy, and whether calls of up to 64 rows use it.
         self.embed_w4: Optional[W4A8Linear] = None
         self.lm_head_w4 = False
+        # Vocab parallelism (parallel/sharding.py): the embedding holds rows
+        # [vocab_start, vocab_start + rows) and lookups and logits go
+        # through the model group (None: the whole table).
+        self.vocab_tp: Optional[comm.ModelParallel] = None
+        self.vocab_start = 0
 
 
 def activation_dtype(model: GemmaModel) -> torch.dtype:
@@ -297,6 +372,7 @@ def forward(
     lora_scale: float = 1.0,
     lora_dropout: float = 0.0,
     lora_generator: Optional[torch.Generator] = None,
+    sequence_parallel: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Decoder trunk: unscaled embeds (B, T, D) + (B, T) positions ->
     (final-normed hidden (B, T, D), the same cache advanced by T).
@@ -328,6 +404,12 @@ def forward(
     shared or per row, see ``lora_delta``); layer ``li`` takes
     ``[li]`` of each. ``lora_dropout`` with ``lora_generator`` draws one
     mask a layer and target (training).
+
+    ``sequence_parallel`` (a tensor-parallel model; a prefill or the pass
+    without a cache): the residual stream between blocks is this rank's
+    ``1 / size`` of T, gathered before each column-parallel product and
+    reduce-scattered after each row-parallel one; the final norm runs on
+    the shard and the hidden states are gathered along T at the end.
     """
     cfg = model.cfg
     dtype = inputs_embeds.dtype
@@ -341,8 +423,9 @@ def forward(
     if multi_token_decode and (cache is None or mask is not None):
         raise ValueError("multi_token_decode needs a cache and no mask")
     if row_lengths is not None:
-        if cache is None or mask is not None or (t != 1 and not multi_token_decode):
-            raise ValueError("row_lengths needs a cache, no mask and T == 1 (or multi_token_decode)")
+        if cache is None or mask is not None or (t != 1 and not multi_token_decode) or sequence_parallel:
+            raise ValueError("row_lengths needs a cache, no mask, T == 1 (or multi_token_decode) and no "
+                             "sequence_parallel")
         cols = (row_lengths.long()[:, None] + _arange(t, row_lengths)).clamp_max(cache.max_len - 1)
         pos = (_arange(b, row_lengths)[:, None].expand(b, t), cols)
         cache.valid.copy_(row_lengths + 1)  # query i sees valid + i (decode_attention)
@@ -358,13 +441,20 @@ def forward(
         pos = cache.length + _arange(t, cache.length)
         # A verify step's query i sees [0, length + 1 + i) (decode_attention).
         cache.valid.copy_((cache.length + (1 if multi_token_decode else t)).expand(b))
+    seq = None
+    if sequence_parallel:
+        if multi_token_decode or model.layers[0].attn_tp is None:
+            raise ValueError("sequence_parallel needs a tensor-parallel model and a prefill")
+        seq = model.layers[0].attn_tp.group
+        h = comm.seq_shard(h, seq)
     for li, layer in enumerate(model.layers):
         h = layer(h, cos, sin, cache, pos, li, fns, mask, multi_token_decode, _layer_lora(lora, li),
-                  lora_scale, lora_dropout, lora_generator)
+                  lora_scale, lora_dropout, lora_generator, seq is not None)
     if cache is not None:
         cache.length.add_(t)
         cache.host_length += t
-    return model.final_norm(h), cache
+    h = model.final_norm(h)
+    return (h if seq is None else comm.gather_seq(h, seq)), cache
 
 
 def _layer_lora(lora, li: int):
@@ -400,28 +490,24 @@ def logits(model: GemmaModel, hidden: torch.Tensor, fns: KernelFns = KERNELS) ->
     """Tied lm_head, fp32 logits (B, T, V).
 
     The product is accumulated and returned in fp32 without rounding through
-    the activation dtype. On CUDA ``torch.mm(..., out_dtype=float32)`` does
-    that straight from the bf16 operands (under autograd through
-    ``_WideLogits``, which gives it a gradient); elsewhere the operands are
-    widened.
+    the activation dtype (``wide_linear``).
     An int8 embedding goes through ``fns.q8`` with fp32 out; with
     ``lm_head_w4`` on, calls of up to 64 rows go through the 4-bit copy.
+    Vocab-parallel (``model.vocab_tp``): each rank's slice of the vocab,
+    gathered to every rank; the 4-bit copy is whole on every rank.
     """
-    emb = model.embed
     if model.lm_head_w4 and hidden.shape[0] * hidden.shape[1] <= MLP_FUSED_MAX_ROWS:
         w4 = model.embed_w4
         return fns.q4a8(hidden, w4.packed, w4.scale, out_dtype=torch.float32)
+    tp = model.vocab_tp
+    if tp is not None:  # each rank's product gives part of d hidden: f
+        hidden = comm.copy_to_model(hidden, tp.group)
+    emb = model.embed
     if isinstance(emb, QLinear):
-        return fns.q8(hidden, emb.weight, emb.scale, out_dtype=torch.float32)
-    h2 = hidden.reshape(-1, hidden.shape[-1])
-    if h2.is_cuda and h2.dtype != torch.float32:
-        if torch.is_grad_enabled() and h2.requires_grad:
-            out = _WideLogits.apply(h2, emb)
-        else:
-            out = torch.mm(h2, emb.t(), out_dtype=torch.float32)
+        out = fns.q8(hidden, emb.weight, emb.scale, out_dtype=torch.float32)
     else:
-        out = h2.float() @ emb.float().t()
-    return out.reshape(*hidden.shape[:-1], emb.shape[0])
+        out = wide_linear(hidden, emb)
+    return out if tp is None else comm.gather_from_model(out, tp.group, -1)
 
 
 class _WideLogits(torch.autograd.Function):
@@ -447,9 +533,22 @@ class _WideLogits(torch.autograd.Function):
 
 def embed_tokens(model: GemmaModel, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup (unscaled). An int8 row is widened to bf16 and
-    scaled by its scale rounded to bf16, as the reference does."""
+    scaled by its scale rounded to bf16, as the reference does.
+    Vocab-parallel (``model.vocab_tp``): each rank looks up the ids in its
+    rows, zeros the others, and the group's sum is every row (exact)."""
+    tp = model.vocab_tp
+    if tp is None:
+        return _lookup(model.embed, input_ids)
     emb = model.embed
+    n = (emb.weight if isinstance(emb, QLinear) else emb).shape[0]
+    local = input_ids - model.vocab_start
+    inside = (local >= 0) & (local < n)
+    rows = _lookup(emb, torch.where(inside, local, 0))
+    return comm.reduce_from_model(torch.where(inside[..., None], rows, 0), tp.group)
+
+
+def _lookup(emb, ids: torch.Tensor) -> torch.Tensor:
     if isinstance(emb, QLinear):
-        rows = emb.weight[input_ids].to(torch.bfloat16)
-        return rows * emb.scale[input_ids].to(torch.bfloat16)[..., None]
-    return F.embedding(input_ids, emb)
+        rows = emb.weight[ids].to(torch.bfloat16)
+        return rows * emb.scale[ids].to(torch.bfloat16)[..., None]
+    return F.embedding(ids, emb)

@@ -22,7 +22,7 @@ CUDA tensor, ``ops.kernels.PLAIN`` runs the plain versions.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -104,15 +104,18 @@ def prefill(
     cache: KVCache,
     full_logits: bool = True,
     fns: KernelFns = KERNELS,
+    sequence_parallel: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Image + templated prompt -> fp32 logits (B, T or 1, V) + the warm cache.
 
     ``full_logits=False`` computes the lm_head for the last position only.
+    ``sequence_parallel``: see ``gemma.forward`` (a tensor-parallel model).
     """
     b, t = input_ids.shape
     embeds = merge_prefix(model, input_ids, encode_image(model, pixel_values, fns))
     positions = torch.arange(t, dtype=torch.int32, device=input_ids.device).expand(b, t)
-    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns)
+    hidden, cache = gemma.forward(model.llm, embeds, positions, cache, fns,
+                                  sequence_parallel=sequence_parallel)
     if not full_logits:
         hidden = hidden[:, -1:, :]
     return gemma.logits(model.llm, hidden, fns), cache
@@ -182,10 +185,13 @@ def forward_nocache(
     return gemma.logits(model.llm, hidden, fns)
 
 
-def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int) -> torch.Tensor:
+def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int,
+                          count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """Mean next-token cross-entropy: position t's logits against label
     t + 1, fp32 log-softmax, labels equal to ``ignore_index`` skipped, the
-    sum over valid labels divided by ``max(n_valid, 1)``."""
+    sum over valid labels divided by ``max(n_valid, 1)``. ``count_reduce``
+    maps this batch's count of valid labels to the divisor's (data
+    parallelism: the count over every data rank's rows)."""
     if labels.shape != logits.shape[:2]:
         raise ValueError(f"labels {tuple(labels.shape)} do not match the logits' {tuple(logits.shape[:2])}")
     shift_logits = logits[:, :-1, :]
@@ -194,8 +200,10 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_ind
     safe = torch.where(valid, shift_labels, 0)
     logp = torch.log_softmax(shift_logits.float(), dim=-1)
     tok_lp = logp.gather(-1, safe[..., None])[..., 0]
-    n_valid = valid.sum().clamp_min(1)
-    return -torch.where(valid, tok_lp, 0.0).sum() / n_valid
+    n_valid = valid.sum()
+    if count_reduce is not None:
+        n_valid = count_reduce(n_valid)
+    return -torch.where(valid, tok_lp, 0.0).sum() / n_valid.clamp_min(1)
 
 
 def loss_fn(
@@ -209,13 +217,15 @@ def loss_fn(
     lora_dropout: float = 0.0,
     lora_generator: Optional[torch.Generator] = None,
     fns: KernelFns = KERNELS,
+    count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Shifted cross-entropy with ignore_index over ``forward_nocache``'s
-    logits: a 0-d fp32 tensor."""
+    logits: a 0-d fp32 tensor (``count_reduce``: see
+    ``shifted_cross_entropy``)."""
     logits = forward_nocache(model, input_ids, pixel_values, valid_len, fns, lora=lora,
                              lora_scale=lora_scale, lora_dropout=lora_dropout,
                              lora_generator=lora_generator)
-    return shifted_cross_entropy(logits, labels, model.cfg.ignore_index)
+    return shifted_cross_entropy(logits, labels, model.cfg.ignore_index, count_reduce)
 
 
 def forward(

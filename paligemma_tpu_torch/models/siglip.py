@@ -13,19 +13,31 @@ reference does, for a float weight and for an int8 ``QLinear`` alike.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from paligemma_tpu_torch.config import SiglipVisionConfig
+from paligemma_tpu_torch.models.gemma import row_parallel
 from paligemma_tpu_torch.ops.kernels import KERNELS, KernelFns
 from paligemma_tpu_torch.ops.norms import layer_norm
+from paligemma_tpu_torch.parallel import comm
 from paligemma_tpu_torch.quantization import QLinear, qproj
 
 
-def linear(x: torch.Tensor, layer: nn.Module, fns: KernelFns) -> torch.Tensor:
-    """``x @ W`` rounded to x.dtype, then ``+ b`` (the reference's order)."""
-    y = qproj(x, layer, fns) if isinstance(layer, QLinear) else F.linear(x, layer.weight)
+def linear(x: torch.Tensor, layer: nn.Module, fns: KernelFns,
+           tp: Optional[comm.ModelParallel] = None) -> torch.Tensor:
+    """``x @ W`` rounded to x.dtype, then ``+ b`` (the reference's order).
+    ``tp``: a row-parallel product (``gemma.row_parallel``), its (replicated)
+    bias added once after the reduction."""
+    if tp is not None:
+        y = row_parallel(x, layer, fns, tp)
+    elif isinstance(layer, QLinear):
+        y = qproj(x, layer, fns)
+    else:
+        y = F.linear(x, layer.weight)
     return y if layer.bias is None else y + layer.bias
 
 
@@ -53,17 +65,30 @@ class SiglipLayer(nn.Module):
         self.ln2 = LayerNorm(d, cfg.layer_norm_eps, dtype)
         self.fc1 = nn.Linear(d, i, dtype=dtype)
         self.fc2 = nn.Linear(i, d, dtype=dtype)
+        # Tensor parallelism (parallel/sharding.py): the collectives around
+        # the attention (qkv split by heads, o row-parallel) and the MLP
+        # (fc1 column-, fc2 row-parallel); None: unsharded. ``n_heads``:
+        # the heads this rank holds.
+        self.attn_tp: Optional[comm.ModelParallel] = None
+        self.mlp_tp: Optional[comm.ModelParallel] = None
+        self.n_heads = cfg.num_attention_heads
 
     def forward(self, h: torch.Tensor, fns: KernelFns) -> torch.Tensor:
         cfg = self.cfg
-        b, n, d = h.shape
+        b, n, _ = h.shape
+        w = self.n_heads * cfg.head_dim
         x = self.ln1(h)
+        if self.attn_tp is not None:
+            x = self.attn_tp.enter(x)
         qkv = linear(x, self.qkv, fns)
-        q, k, v = (y.view(b, n, cfg.num_attention_heads, cfg.head_dim) for y in qkv.split(d, dim=-1))
-        h = h + linear(fns.flash(q, k, v).reshape(b, n, d), self.o, fns)
-        x = linear(self.ln2(h), self.fc1, fns)
+        q, k, v = (y.view(b, n, self.n_heads, cfg.head_dim) for y in qkv.split(w, dim=-1))
+        h = h + linear(fns.flash(q, k, v).reshape(b, n, w), self.o, fns, self.attn_tp)
+        x = self.ln2(h)
+        if self.mlp_tp is not None:
+            x = self.mlp_tp.enter(x)
+        x = linear(x, self.fc1, fns)
         x = F.gelu(x.float(), approximate="tanh").to(x.dtype)
-        return h + linear(x, self.fc2, fns)
+        return h + linear(x, self.fc2, fns, self.mlp_tp)
 
 
 class SiglipVisionModel(nn.Module):

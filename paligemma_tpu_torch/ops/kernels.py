@@ -21,7 +21,8 @@ class KernelFns(NamedTuple):
     """``flash``: SigLIP and prefill attention; ``decode``: one token against
     the cache (bf16 or int8); ``q8``: every int8 projection and the int8
     lm_head; ``q4``: the int4 weight-only projections; ``a8``: int8 x int8
-    projections of long calls (``prefill_a8``); ``q4a8``: the 4-bit lm_head;
+    projections of long calls (``prefill_a8``; a row-parallel call passes
+    its group's reductions); ``q4a8``: the 4-bit lm_head;
     ``mlp_w4a8``: the w4a8 MLP."""
 
     flash: Callable[..., torch.Tensor]

@@ -52,13 +52,16 @@ after a ``quant_rows`` launch, which ``quant_rows`` counts), and
 from __future__ import annotations
 
 import functools
-from typing import Mapping, Optional, Tuple
+from typing import Callable, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from paligemma_tpu_torch.ops import _build
 from paligemma_tpu_torch.ops.cuda_attention import refuse_grad
+
+# A reduction of a row-parallel product's partial results over its group.
+Reduce = Callable[[torch.Tensor], torch.Tensor]
 
 # Rows of one fused-MLP call; more rows take the int8 companions
 # (the reference's VMEM budget, kept as the routing rule).
@@ -127,14 +130,19 @@ def quantize_rows_s8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, xs
 
 
-def quantize_rows_s8_rcp(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows_s8_rcp(x: torch.Tensor, amax_reduce: Optional[Reduce] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., D) -> (xq int8 (..., D), xs fp32 (...)) as the reference's jitted
     ``qproj_a8`` and ``quantize_kv_rows`` compute it: XLA turns their
     ``/ 127.0`` into a product with the fp32 reciprocal, so
     ``xs = max(absmax, 1e-8) * fp32(1/127)``; ``xq = round(x / xs)`` stays an
-    IEEE division of two tensors (clipped to [-127, 127], which never binds)."""
+    IEEE division of two tensors (clipped to [-127, 127], which never binds).
+    ``amax_reduce`` maps the rows' absmax to that of whole rows (a
+    row-parallel product's columns: the max over the model group)."""
     xf = x.float()
-    xs = xf.abs().amax(dim=-1).clamp_min(1e-8) * (1.0 / 127.0)
+    amax = xf.abs().amax(dim=-1)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    xs = amax.clamp_min(1e-8) * (1.0 / 127.0)
     xq = torch.round(xf / xs[..., None]).clamp_(-127, 127).to(torch.int8)
     return xq, xs
 
@@ -272,23 +280,30 @@ q4_matmul.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    amax_reduce: Optional[Reduce] = None, acc_reduce: Optional[Reduce] = None) -> torch.Tensor:
     """Plain version of ``a8_matmul`` (any device). The product is taken in
     float64, exact for these integer sums (fp32 is not: 127^2 x 2048 is
     above 2^24)."""
-    xq, xs = quantize_rows_s8_rcp(x)
+    xq, xs = quantize_rows_s8_rcp(x, amax_reduce)
     acc = (xq.double() @ q.double().t()).to(torch.int32)
+    if acc_reduce is not None:
+        acc = acc_reduce(acc)
     return (acc.float() * xs[..., None] * scale).to(x.dtype)
 
 
-def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+              amax_reduce: Optional[Reduce] = None, acc_reduce: Optional[Reduce] = None) -> torch.Tensor:
     """x (..., D) quantized to int8 per row @ int8 (O, D)^T with an exact
     int32 product, rescaled per row and per output row -> (..., O) in
     x.dtype. On the card the product is ``torch._int_mm`` (cuBLASLt), which
     takes more than 16 rows and widths that are multiples of 8; anything
-    else raises."""
+    else raises. A row-parallel product (x and q hold a slice of D) passes
+    ``amax_reduce`` (the rows' absmax over the slices: a max over the
+    model group) and ``acc_reduce`` (the int32 sums over the slices: exact),
+    so every rank gets the whole product's bits."""
     if x.device.type == "cpu":
-        return a8_matmul_plain(x, q, scale)
+        return a8_matmul_plain(x, q, scale, amax_reduce, acc_reduce)
     if x.device.type != "cuda":
         raise ValueError(f"a8_matmul: activations must be on a CUDA device, got {x.device}")
     refuse_grad("a8_matmul", x, q, scale)
@@ -301,8 +316,10 @@ def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
             f"multiples of 8, got ({m}, {d}) @ ({d}, {o})"
         )
     _check_weight("a8_matmul", x2, q, scale, torch.int8, (o, d))
-    xq, xs = quantize_rows_s8_rcp(x2)
+    xq, xs = quantize_rows_s8_rcp(x2, amax_reduce)
     acc = torch._int_mm(xq, q.t())  # the (O, D) weight as a column-major (D, O)
+    if acc_reduce is not None:
+        acc = acc_reduce(acc)
     a8_matmul.calls += 1
     return (acc.float() * xs[:, None] * scale).to(x.dtype).reshape(*lead, o)
 
