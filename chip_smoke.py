@@ -223,7 +223,35 @@ non-zero, and without a CUDA device the script exits 2 before doing anything:
     bit for bit the eager step. Reported, not gated: which collectives
     gloo runs on CUDA tensors, per-rank host ms of a prefill and a decode
     token over gloo (not a tensor-parallel speed), the host copies of the
-    pipeline's gloo point-to-point, per-rank peak MiB.
+    pipeline's gloo point-to-point, per-rank peak MiB. Sequence parallelism
+    at an odd length (``[parallel sp]`` lines): request 0's image with a
+    277-token prompt (padded to 278 over the two ranks), in bf16 and in
+    int8 with ``prefill_a8``: the last-position logits bit for bit the
+    rank's tensor-parallel prefill without sequence parallelism, and within
+    phase 5's bar of the unsharded prefill's (bf16; the a8 arm holds its
+    argmax: the TP a8 prefill sits 3.1% from the unsharded one, ROADMAP
+    Queue 3); nothing written to the cache past T; flash once a layer (and
+    the int8 x int8 products 4 a layer); layer 0's down product under
+    sequence parallelism bit for bit the whole a8 product's rows; each
+    rank's host ms over gloo.
+18. Surfaces (``phase_surfaces``, ``[surfaces ...]`` lines; its seconds on
+    a line of their own): ``scripts/validate_checkpoint_torch.py``'s
+    ``run_checks`` on the seeded bf16 model written as HF-layout shards,
+    with the byte-tokenizer processor passed in and 16 tokens, every
+    check's status and details printed. config, tokenizer (source
+    "given"), load and lora_smoke pass; logit_parity passes against HF
+    transformers in fp32 on the CPU where transformers is installed, and
+    is skipped for its absence where it is not; int8_identity,
+    w4a8_agreement and lm_head_w4_agreement pass or part from the bf16
+    stream at a near tie (phase 10's rule; the parting and the top-two gap
+    printed); a8_prefill_agreement is recorded; flash, decode attention,
+    q8, the w4a8 GEMV and GeGLU are launched by the run. Then
+    ``app_torch.py --demo`` under ``_StubStreamlit`` (bf16 on the card):
+    its answer equal to a direct ``inference_torch.test_inference`` call,
+    a second ``get_model()`` a cache hit, flash and decode attention
+    launched. Then ``paligemma_tpu_torch.native`` built with g++ from the
+    checkout's ``native/preproc.cpp``, on a 480 x 640 image within
+    tests/test_native.py's bars of the PIL processor path.
 
 Phase 3 also holds batched serving's decode (batch 4, per-row valid, the
 window's end read on the device: bit for bit the host end's, also from a
@@ -3745,6 +3773,8 @@ def _tp_rank(cfg, batch, dp_rows, traffic, n_img):
     del models["int8"]
     tp = models["bf16"]
     torch.cuda.empty_cache()
+    out["sp"] = _tp_sequence_parallel(torch, full, tp, cfg, mesh, proc, counted)
+    torch.cuda.empty_cache()
 
     # (2, 1): data parallel, one row a rank.
     dp_mesh = make_mesh(TP_RANKS, 1, device="cuda")
@@ -3789,6 +3819,56 @@ def _tp_rank(cfg, batch, dp_rows, traffic, n_img):
                      "graphs": len(eng.graph_log), "ms": (time.perf_counter() - t0) * 1e3}
     out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     return out
+
+
+def _odd_request(torch, proc):
+    """Request 0's image and prompt with one more character: T = 277, which
+    does not split over TP_RANKS ranks."""
+    dev = torch.device("cuda")
+    inputs = proc([REQUESTS[0][0] + "?"], [_request_image(0)])
+    return (torch.from_numpy(inputs["input_ids"]).to(dev),
+            torch.from_numpy(inputs["pixel_values"]).to(dev, torch.bfloat16))
+
+
+def _tp_sequence_parallel(torch, full, tp, cfg, mesh, proc, counted):
+    """A rank's sequence-parallel prefills of the odd-length prompt (T
+    padded to a multiple of the ranks), in bf16 and in int8 with
+    ``prefill_a8``: the last-position logits, launches, host ms and whether
+    the cache past T stayed empty; and layer 0's down product under
+    sequence parallelism (the a8 route) against the whole a8 product's rows
+    of this rank."""
+    from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.models import gemma, paligemma
+    from paligemma_tpu_torch.ops import kernels
+    from paligemma_tpu_torch.parallel import comm, sharding, steps
+
+    ids, pix = _odd_request(torch, proc)
+    t = ids.shape[1]
+    prefill = steps.make_sharded_prefill(cfg, mesh, sequence_parallel=True)
+    whole_a8 = quantization.quantize_params(full, llm_only=True, mode="int8", prefill_a8=True)
+    a8 = sharding.shard_params(whole_a8, cfg, mesh)
+    res = {"t": t}
+    for arm, m in (("bf16", tp), ("a8", a8)):
+        cache = generation.make_cache(m, 1, t, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (lg, cache), counts = counted(lambda: prefill(m, ids, pix, cache, full_logits=False))
+        ms = (time.perf_counter() - t0) * 1e3
+        # The same rank's tensor-parallel prefill without sequence
+        # parallelism: the same SigLIP and the same products.
+        with torch.no_grad():
+            tp_lg, _ = paligemma.prefill(m, ids, pix, generation.make_cache(m, 1, t, 1), full_logits=False)
+        res[arm] = {"logits": lg[0, -1].float().cpu(), "tp_logits": tp_lg[0, -1].float().cpu(), "counts": counts,
+                    "ms": ms, "empty_past_t": cache.host_length == t and not bool(cache.k[:, :, t:].any())}
+    whole, rank = whole_a8.llm.layers[0].down, a8.llm.layers[0].down
+    n, m = rank.weight.shape[1], mesh.model_rank
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = torch.randn((1, t, whole.weight.shape[1]), generator=gen, device="cuda").to(torch.bfloat16)
+    got = gemma.row_parallel(x[..., m * n:(m + 1) * n], rank, kernels.KERNELS, a8.llm.layers[0].mlp_tp, seq=t)
+    want = comm.seq_shard(kernels.KERNELS.a8(x, whole.weight, whole.scale), mesh.model_group)
+    res["a8_rows"] = {"shape": tuple(got.shape), "bit_identical": torch.equal(got, want),
+                      "max_abs_err": float((got.float() - want.float()).abs().max())}
+    return res
 
 
 def _gloo_cuda_table(torch, mesh):
@@ -3914,6 +3994,8 @@ def _phase_parallel(torch, model, proc, tok, cfg, main_counts):
     gc.collect()
     torch.cuda.empty_cache()
 
+    record["sequence_parallel"] = _held_sequence_parallel(torch, model, proc, ranks, n_v, n_l, main_counts)
+
     # (2, 1): each data rank's row against the unsharded batch's.
     ids2, pix2 = dp_rows[0].to(dev), dp_rows[1].to(dev)
     with torch.no_grad():
@@ -4001,6 +4083,63 @@ def _phase_parallel(torch, model, proc, tok, cfg, main_counts):
     return record
 
 
+def _held_sequence_parallel(torch, model, proc, ranks, n_v, n_l, main_counts):
+    """The ranks' sequence-parallel prefills of the odd-length prompt: bit
+    for bit the rank's TP prefill without sequence parallelism; the
+    last-position logits within phase 5's bar of the unsharded model's
+    (bf16) or with its argmax (the int8 ``prefill_a8`` copy); the cache
+    written up to T only; flash launched once a layer; the a8 rows bit for
+    bit."""
+    from paligemma_tpu_torch import generation, quantization
+    from paligemma_tpu_torch.models import paligemma
+
+    tag = "[parallel sp]"
+    ids, pix = _odd_request(torch, proc)
+    t = ids.shape[1]
+    refs = {"bf16": model, "a8": quantization.quantize_params(model, llm_only=True, mode="int8", prefill_a8=True)}
+    record = {"t": t, "host_ms": {}}
+    for arm, m in refs.items():
+        with torch.no_grad():
+            lg, _ = paligemma.prefill(m, ids, pix, generation.make_cache(m, 1, t, 1), full_logits=False)
+        ref = lg[0, -1].float().cpu()
+        bar = LOGIT_REL_TOL * float(ref.abs().max())
+        record["host_ms"][arm] = [r["sp"][arm]["ms"] for r in ranks]
+        for r in ranks:
+            got = r["sp"][arm]
+            err = float((got["logits"] - ref).abs().max())
+            tp_err = float((got["tp_logits"] - ref).abs().max())
+            sp_tp = float((got["logits"] - got["tp_logits"]).abs().max())
+            counts = got["counts"]
+            log(f"{tag} {arm} rank {r['rank']}: T = {t} over {TP_RANKS} ranks (padded to "
+                f"{-(-t // TP_RANKS) * TP_RANKS}) | last logits max_abs_err {err:.3e} (bar {bar:.3e}) vs the "
+                f"unsharded prefill, the rank's TP prefill without SP {tp_err:.3e} from it, SP vs that TP "
+                f"{sp_tp:.3e} (bit for bit {torch.equal(got['logits'], got['tp_logits'])}) | argmax equal "
+                f"{int(got['logits'].argmax()) == int(ref.argmax())} | cache empty "
+                f"past T {got['empty_past_t']} | launches {counts} | host {got['ms']:.1f} ms (gloo on one card, "
+                f"not a TP speed)")
+            # Sequence parallelism moves no bit of the rank's TP prefill. The
+            # TP a8 prefill itself sits 3.1% from the unsharded one (PERF.md,
+            # ROADMAP Queue 3), past phase 5's bar: a8 is held to the
+            # unsharded argmax there, bf16 to the bar.
+            check(torch.equal(got["logits"], got["tp_logits"]),
+                  f"{tag} {arm} rank {r['rank']}: sequence parallelism changed the TP prefill's logits")
+            check(int(got["logits"].argmax()) == int(ref.argmax()) and (arm == "a8" or err <= bar),
+                  f"{tag} {arm} rank {r['rank']}: logits off the unsharded prefill's")
+            check(got["empty_past_t"], f"{tag} {arm} rank {r['rank']}: the cache was written past T")
+            check(counts.get("flash_attention") == n_v + n_l, f"{tag} {arm} rank {r['rank']}: flash {counts}")
+            if arm == "a8":
+                check(counts.get("a8_matmul") == 4 * n_l, f"{tag} rank {r['rank']}: a8 products {counts}")
+            main_counts["flash_attention"] += counts["flash_attention"]
+    for r in ranks:
+        rows = r["sp"]["a8_rows"]
+        log(f"{tag} rank {r['rank']}: layer 0's down product under sequence parallelism (int32 sums "
+            f"reduce-scattered along T), rows {rows['shape']}: bit for bit the whole a8 product's rows "
+            f"{rows['bit_identical']} (max_abs_err {rows['max_abs_err']:.3e})")
+        check(rows["bit_identical"], f"{tag} rank {r['rank']}: the a8 rows differ from the whole product's")
+    del refs
+    return record
+
+
 def _nccl_graph(torch, model, proc, cfg):
     """A world-size-1 NCCL group in this process: the sharded decode of the
     1 x 1 model (its collectives inside) captured as a CUDA graph, whose
@@ -4047,6 +4186,251 @@ def _nccl_graph(torch, model, proc, cfg):
         return {"captured": len(graphs), "bit_identical": same}
     finally:
         dist.destroy_process_group()
+
+
+# Phase 18: the surfaces. The harness's greedy tokens (its CLI default), the
+# kernels its checks must launch, and the native preprocessor's image and
+# bars (tests/test_native.py's: PIL runs the same cubic in 8-bit fixed
+# point, one quantization step of slack a pixel).
+HARNESS_TOKENS = 16
+HARNESS_KERNELS = ("flash_attention", "decode_attention", "q8_matmul", "w4a8_gemv", "w4a8_geglu")
+# Token checks held to the bf16 stream under phase 10's near-tie rule.
+HARNESS_TOKEN_CHECKS = ("int8_identity", "w4a8_agreement", "lm_head_w4_agreement")
+NATIVE_HW = (480, 640)
+NATIVE_MAX_ERR, NATIVE_MEAN_ERR = 2.5 / 255.0 + 1e-6, 0.5 / 255.0
+
+
+class _StubStreamlit:
+    """Just enough of streamlit for app_torch.py's widget flow, modelled on
+    tests/test_app.py's ``FakeStreamlit``: every widget returns its default,
+    the upload is the given file, Analyze is pressed."""
+
+    def __init__(self, upload):
+        self.upload, self.calls, self.written, self.cache_hits = upload, [], [], 0
+
+    def cache_resource(self, fn):
+        cache = {}
+
+        def wrapper(*a, **k):
+            if "v" in cache:
+                self.cache_hits += 1
+            else:
+                cache["v"] = fn(*a, **k)
+            return cache["v"]
+
+        return wrapper
+
+    def title(self, t):
+        self.calls.append(("title", t))
+
+    def file_uploader(self, label, type=None):
+        self.calls.append(("file_uploader", tuple(type or ())))
+        return self.upload
+
+    def image(self, im, caption=None):
+        self.calls.append(("image", caption))
+
+    def text_input(self, label, value=""):
+        return value
+
+    def number_input(self, label, value=0, step=1):
+        return value
+
+    def slider(self, label, lo, hi, value):
+        return value
+
+    def checkbox(self, label, value=False):
+        return value
+
+    def button(self, label):
+        self.calls.append(("button", label))
+        return True
+
+    def spinner(self, msg):
+        self.calls.append(("spinner", msg))
+        return contextlib.nullcontext()
+
+    def subheader(self, t):
+        self.calls.append(("subheader", t))
+
+    def write(self, r):
+        self.written.append(r)
+
+
+def _harness_module():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "validate_checkpoint_torch.py")
+    spec = importlib.util.spec_from_file_location("validate_checkpoint_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _harness(torch, model, proc, cfg, main_counts):
+    """scripts/validate_checkpoint_torch.py's ``run_checks`` on the seeded
+    bf16 model written as HF-layout shards (the port's writer), with the
+    byte-tokenizer processor passed in; the launches of the run."""
+    import shutil
+
+    from paligemma_tpu_torch.ops import kernels
+    from paligemma_tpu_torch.utils import checkpoint
+
+    tag = "[surfaces harness]"
+    vc = _harness_module()
+    tmp = tempfile.mkdtemp(prefix="pg_harness_")
+    try:
+        t0 = time.perf_counter()
+        written = checkpoint.save_hf_checkpoint(model, tmp)
+        log(f"{tag} wrote {written / 1e9:.3f} GB in {time.perf_counter() - t0:.2f} s")
+        rss0 = _host_peak_rss_gb()
+        kernels.reset_launch_counts()  # the harness's run, read right after it
+        t0 = time.perf_counter()
+        report = vc.run_checks(tmp, HARNESS_TOKENS, hf_mode="on", device="cuda", processor=proc)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.call_counts().items() if v}
+        rss = _host_peak_rss_gb()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    checks = report["checks"]
+    for name, c in checks.items():
+        log(f"{tag} {name}: {c['status']} {json.dumps({k: v for k, v in c.items() if k not in ('status', 'trace')})}")
+    for name in ("config", "tokenizer", "load", "lora_smoke"):
+        check(checks[name]["status"] == "pass", f"{tag} {name}: {checks[name]}")
+    check(checks["tokenizer"]["source"] == "given", f"{tag} the processor was not the one given")
+    parity = checks["logit_parity"]
+    try:
+        import transformers
+
+        log(f"{tag} transformers {transformers.__version__}: logit_parity runs (the fp32 CPU oracle)")
+        check(parity["status"] == "pass", f"{tag} logit_parity: {parity}")
+    except ImportError:
+        check(parity["status"] == "skipped" and "transformers" in parity["reason"],
+              f"{tag} logit_parity is not skipped for the absent transformers: {parity}")
+    w = model.llm.final_norm.weight
+    ids, pix = vc.harness_inputs(proc, cfg, w.device, w.dtype)
+    partings = {}
+    for name in HARNESS_TOKEN_CHECKS:
+        c = checks[name]
+        if c["status"] == "pass":
+            continue
+        check(c["status"] == "fail" and "first_difference" in c, f"{tag} {name}: {c}")
+        div = c["first_difference"]
+        gap, bar = _top_two_gap(torch, model, ids, pix, c["base_tokens"][:div], None)
+        partings[name] = {"first_difference": div, "top_two_gap": gap, "bar": bar}
+        log(f"{tag} {name}: parts from the bf16 stream at token {div} of {len(c['base_tokens'])}, where bf16's "
+            f"top two logits are {gap:.4e} apart (bar {bar:.4e}, phase 10's rule)")
+        check(gap <= bar, f"{tag} {name}: the stream parts off a near tie")
+    check("agreement" in checks["a8_prefill_agreement"], f"{tag} a8_prefill_agreement: {checks['a8_prefill_agreement']}")
+    log(f"{tag} run_checks {run_s:.1f} s | the process's peak host RSS {rss0:.2f} GB before it, {rss:.2f} GB "
+        f"after | launches {counts} | {report['summary']}")
+    for k in HARNESS_KERNELS:
+        check(counts.get(k, 0) >= 1, f"{tag} {k} was never launched")
+        main_counts[k] += counts[k]
+    return {"seconds": run_s, "summary": report["summary"], "statuses": {k: c["status"] for k, c in checks.items()},
+            "load_s": checks["load"]["seconds"], "host_rss_delta_mb": checks["load"]["host_rss_delta_mb"],
+            "peak_rss_gb": (rss0, rss),
+            "streaming": checks["load"]["streaming"], "partings": partings, "launches": counts}
+
+
+def _app(torch, main_counts):
+    """app_torch.py --demo under ``_StubStreamlit`` on the card: the written
+    answer equal to a direct ``inference_torch.test_inference`` call with the
+    widgets' values; a second ``get_model()`` a cache hit; flash and decode
+    attention launched by the Analyze click."""
+    import io
+    import runpy
+
+    from paligemma_tpu_torch.ops import kernels
+
+    tag = "[surfaces app]"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    buf = io.BytesIO()
+    _request_image(1).save(buf, "PNG")
+    buf.seek(0)
+    buf.name = "upload.png"
+    stub = _StubStreamlit(buf)
+    saved = sys.modules.get("streamlit"), sys.argv
+    sys.modules["streamlit"], sys.argv = stub, ["app_torch.py", "--demo"]
+    try:
+        kernels.reset_launch_counts()  # the click, read right after it
+        t0 = time.perf_counter()
+        glb = runpy.run_path(os.path.join(repo, "app_torch.py"), run_name="app_torch_on_the_card")
+        torch.cuda.synchronize()
+        click_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.call_counts().items() if v}
+        model, processor = glb["get_model"]()
+    finally:
+        if saved[0] is None:
+            sys.modules.pop("streamlit", None)
+        else:
+            sys.modules["streamlit"] = saved[0]
+        sys.argv = saved[1]
+    import inference_torch
+
+    with tempfile.TemporaryDirectory(prefix="pg_app_") as tmp:
+        path = os.path.join(tmp, "upload.png")
+        _request_image(1).convert("RGB").save(path)
+        want = inference_torch.test_inference(model, processor, "Describe the image", path, 100, 0.8, 0.9, False)
+    dev = model.llm.final_norm.weight
+    log(f"{tag} app_torch.py --demo: {[c[0] for c in stub.calls]} | title {stub.calls[0][1]!r} | model "
+        f"{dev.device} {dev.dtype} | Analyze in {click_s:.1f} s (model load included) | answer {stub.written!r} | "
+        f"equal to test_inference: {stub.written == [want]} | cache hits {stub.cache_hits} | launches {counts}")
+    check(dev.device.type == "cuda" and dev.dtype == torch.bfloat16, f"{tag} the demo model is not bf16 on the card")
+    check(stub.written == [want], f"{tag} the app's answer differs from test_inference's")
+    check(stub.cache_hits == 1, f"{tag} get_model was not cached")
+    check("TPU" not in stub.calls[0][1] and all("TPU" not in c[1] for c in stub.calls if c[0] == "spinner"),
+          f"{tag} the app names a TPU")
+    for k in ("flash_attention", "decode_attention"):
+        check(counts.get(k, 0) >= 1, f"{tag} {k} was never launched")
+        main_counts[k] += counts[k]
+    return {"seconds": click_s, "launches": counts, "answer_equal": True}
+
+
+def _native(torch, cfg):
+    """paligemma_tpu_torch.native built from the checkout's source on this
+    machine, on a 480 x 640 image, within tests/test_native.py's bars of the
+    port's PIL processor path at the model's image size."""
+    import numpy as np
+    from PIL import Image
+
+    from paligemma_tpu_torch import native
+    from paligemma_tpu_torch.processing import process_images
+
+    tag = "[surfaces native]"
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    build_s = time.perf_counter() - t0
+    size = cfg.vision_config.image_size
+    raw = np.random.RandomState(SEED).randint(0, 256, (*NATIVE_HW, 3), np.uint8)
+    t0 = time.perf_counter()
+    got = native.preprocess_images_native(raw, size)[0]
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host = torch.from_numpy(process_images([Image.fromarray(raw)], size=(size, size))[0])
+    pil_ms = (time.perf_counter() - t0) * 1e3
+    diff = (got - host).abs()
+    err, mean = float(diff.max()), float(diff.mean())
+    log(f"{tag} g++ build {build_s:.2f} s -> {os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))} | "
+        f"{NATIVE_HW[0]}x{NATIVE_HW[1]} -> {size}x{size}: {tuple(got.shape)} {got.dtype} {got.device} | max_abs_err "
+        f"{err:.4e} (bar {NATIVE_MAX_ERR:.4e}), mean {mean:.4e} (bar {NATIVE_MEAN_ERR:.4e}) against the PIL path | "
+        f"host ms: native {native_ms:.2f}, PIL {pil_ms:.2f}")
+    check(got.shape == host.shape == (3, size, size) and got.dtype == torch.float32, f"{tag} wrong output")
+    check(err <= NATIVE_MAX_ERR and mean < NATIVE_MEAN_ERR, f"{tag} off the PIL path's bars")
+    return {"build_s": build_s, "max_abs_err": err, "mean_abs_err": mean, "native_ms": native_ms, "pil_ms": pil_ms}
+
+
+def phase_surfaces(torch, model, proc, cfg, main_counts):
+    """Phase 18: the validation harness on the 3B checkpoint, the Streamlit
+    app under a stub streamlit, the native preprocessor."""
+    t0 = time.perf_counter()
+    record = {"harness": _harness(torch, model, proc, cfg, main_counts), "app": _app(torch, main_counts),
+              "native": _native(torch, cfg)}
+    record["seconds"] = time.perf_counter() - t0
+    log(f"[surfaces] phase 18 took {record['seconds']:.1f} s")
+    return record
 
 
 KERNEL_TABLE = [
@@ -4099,6 +4483,7 @@ def main() -> int:
         serve_rec = phase_lora_serving(torch, model, proc, cfg, trained, lcfg, adapter_dir, main_counts)
         log(f"[lora serving] {json.dumps(serve_rec, default=str)}")
     log(f"[parallel] {json.dumps(phase_parallel(torch, model, proc, tok, cfg, main_counts), default=str)}")
+    log(f"[surfaces] {json.dumps(phase_surfaces(torch, model, proc, cfg, main_counts), default=str)}")
     times = phase_timing(torch, records[0]["ids"].shape[1])
 
     kernels = []

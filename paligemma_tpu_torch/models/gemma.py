@@ -165,20 +165,22 @@ def proj(x: torch.Tensor, w: nn.Module, fns: KernelFns) -> torch.Tensor:
 
 
 def row_parallel(x: torch.Tensor, w: nn.Module, fns: KernelFns, tp: comm.ModelParallel,
-                 seq: bool = False) -> torch.Tensor:
+                 seq: int = 0) -> torch.Tensor:
     """A row-parallel product under TP (x and w hold this rank's slice of
     the contraction): the partial products reduced over the model group
-    (reduce-scattered along T with ``seq``) in fp32 and rounded once to
-    x.dtype, as the whole product is rounded once. An int8 x int8 call
-    (``prefill_a8``) reduces the rows' absmax (a max) and its int32 sums
-    (exact), so every rank gets the whole product's bits. ``w``: float,
-    int8 or int4 (not bias-added)."""
+    (reduce-scattered along T with ``seq``, the sequence's length) in fp32
+    and rounded once to x.dtype, as the whole product is rounded once. An
+    int8 x int8 call (``prefill_a8``) reduces the rows' absmax (a max) and
+    its int32 sums (exact; reduce-scattered along T with ``seq``, each rank
+    then rescaling its own rows), so every rank gets the whole product's
+    bits. ``w``: float, int8 or int4 (not bias-added)."""
     if isinstance(w, QLinear) and w.prefill_a8 and x.shape[-2] >= quantization.A8_MIN_SEQ:
-        if seq:
-            raise ValueError("sequence parallelism does not take prefill_a8 products")
         g = tp.group
+        acc_reduce, row_select = (lambda a: comm.all_reduce(a, g)), None
+        if seq:
+            acc_reduce, row_select = (lambda a: comm.scatter_seq(a, g)), (lambda s: comm.seq_shard(s, g))
         return fns.a8(x, w.weight, w.scale, amax_reduce=lambda a: comm.all_reduce_max(a, g),
-                      acc_reduce=lambda a: comm.all_reduce(a, g))
+                      acc_reduce=acc_reduce, row_select=row_select)
     if isinstance(w, QLinear):
         y = fns.q8(x, w.weight, w.scale, out_dtype=torch.float32)
     elif isinstance(w, Q4Linear):
@@ -261,12 +263,13 @@ class GemmaLayer(nn.Module):
     def attention(self, x, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
                   mask: Optional[LengthMask] = None, multi_decode: bool = False, lora=None,
                   lora_scale: float = 1.0, lora_dropout: float = 0.0,
-                  lora_generator: Optional[torch.Generator] = None, seq: bool = False):
+                  lora_generator: Optional[torch.Generator] = None, seq: int = 0):
         """``pos``: the write positions, (T,) int64 shared by every row, or
         a pair of (B, T) int64 row and position indices (per-row lengths).
         ``lora``: this layer's adapters, ``{"q"|"k"|"v": (a, b)}``; each
-        target draws its own dropout mask, in the order q, k, v. ``seq``:
-        x is this rank's T shard (sequence parallelism)."""
+        target draws its own dropout mask, in the order q, k, v. ``seq``
+        (sequence parallelism): the sequence's T, x being this rank's shard
+        of it padded to a multiple of the model group's size; 0 without."""
         cfg, tp = self.cfg, self.attn_tp
         if tp is not None:
             x = tp.enter(x, seq)
@@ -305,13 +308,13 @@ class GemmaLayer(nn.Module):
         out = fns.flash(q, k, v, scale=scale, **window)
         return self._out(out.reshape(b, t, h * hd), fns, seq)
 
-    def _out(self, attn: torch.Tensor, fns: KernelFns, seq: bool) -> torch.Tensor:
+    def _out(self, attn: torch.Tensor, fns: KernelFns, seq: int) -> torch.Tensor:
         """The o projection (row-parallel under TP)."""
         if self.attn_tp is None:
             return proj(attn, self.o, fns)
         return row_parallel(attn, self.o, fns, self.attn_tp, seq)
 
-    def mlp(self, x: torch.Tensor, fns: KernelFns, seq: bool = False) -> torch.Tensor:
+    def mlp(self, x: torch.Tensor, fns: KernelFns, seq: int = 0) -> torch.Tensor:
         """The GeGLU MLP; under TP gate_up is column-parallel (each rank its
         gate half and the matching up half) and down row-parallel. The w4a8
         fused MLP's weights stay whole on every rank (as the reference's),
@@ -329,7 +332,7 @@ class GemmaLayer(nn.Module):
     def forward(self, h, cos, sin, cache: Optional[KVCache], pos, li: int, fns: KernelFns,
                 mask: Optional[LengthMask] = None, multi_decode: bool = False, lora=None,
                 lora_scale: float = 1.0, lora_dropout: float = 0.0,
-                lora_generator: Optional[torch.Generator] = None, seq: bool = False):
+                lora_generator: Optional[torch.Generator] = None, seq: int = 0):
         h = h + self.attention(self.input_ln(h), cos, sin, cache, pos, li, fns, mask, multi_decode,
                                lora, lora_scale, lora_dropout, lora_generator, seq)
         return h + self.mlp(self.post_ln(h), fns, seq)
@@ -407,9 +410,11 @@ def forward(
 
     ``sequence_parallel`` (a tensor-parallel model; a prefill or the pass
     without a cache): the residual stream between blocks is this rank's
-    ``1 / size`` of T, gathered before each column-parallel product and
-    reduce-scattered after each row-parallel one; the final norm runs on
-    the shard and the hidden states are gathered along T at the end.
+    ``1 / size`` of T (padded with zero rows to a multiple of the size),
+    gathered before each column-parallel product and reduce-scattered
+    after each row-parallel one; the final norm runs on the shard and the
+    hidden states are gathered along T at the end. Every product,
+    attention and cache write sees the T real rows only (``comm.py``).
     """
     cfg = model.cfg
     dtype = inputs_embeds.dtype
@@ -449,12 +454,12 @@ def forward(
         h = comm.seq_shard(h, seq)
     for li, layer in enumerate(model.layers):
         h = layer(h, cos, sin, cache, pos, li, fns, mask, multi_token_decode, _layer_lora(lora, li),
-                  lora_scale, lora_dropout, lora_generator, seq is not None)
+                  lora_scale, lora_dropout, lora_generator, 0 if seq is None else t)
     if cache is not None:
         cache.length.add_(t)
         cache.host_length += t
     h = model.final_norm(h)
-    return (h if seq is None else comm.gather_seq(h, seq)), cache
+    return (h if seq is None else comm.gather_seq(h, seq, t)), cache
 
 
 def _layer_lora(lora, li: int):

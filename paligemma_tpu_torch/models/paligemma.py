@@ -7,7 +7,7 @@
 - The processor emits image tokens as a fixed-length prefix, so the merge is
   a concat; only ``input_ids[:, n_img:]`` is embedded (the image token id may
   lie outside the embedding table, and ``F.embedding`` raises where
-  ``jnp.take`` clamps).
+  ``jnp.take`` clamps). ``merge_general`` takes image tokens anywhere.
 - Prefill positions are 0..T-1; a decode step sits at position = cache
   length, read on the device (nothing goes back to the host), and a
   speculative verify step (``verify_step``) at length .. length + k - 1.
@@ -95,6 +95,25 @@ def merge_prefix(
     n_img = image_features.shape[1]
     text_embeds = gemma.embed_tokens(model.llm, input_ids[:, n_img:])
     return torch.cat([image_features.to(text_embeds.dtype), text_embeds], dim=1)
+
+
+def merge_general(
+    model: PaliGemma, input_ids: torch.Tensor, image_features: torch.Tensor
+) -> torch.Tensor:
+    """The merge for any layout of image tokens (the reference's
+    masked-scatter merge): the i-th image feature goes to the i-th position
+    whose id is ``image_token_index`` (an image position past the last
+    feature takes the last one), text positions take their embeddings, and
+    pad positions are zeroed. Image ids are never looked up (they may lie
+    past the embedding table)."""
+    cfg = model.cfg
+    is_image = input_ids == cfg.image_token_index
+    is_pad = input_ids == (cfg.pad_token_id if cfg.pad_token_id is not None else -1)
+    text_embeds = gemma.embed_tokens(model.llm, torch.where(is_image, 0, input_ids))
+    img_rank = (is_image.to(torch.int64).cumsum(-1) - 1).clamp(0, image_features.shape[1] - 1)
+    gathered = torch.take_along_dim(image_features.to(text_embeds.dtype), img_rank[..., None], dim=1)
+    out = torch.where(is_image[..., None], gathered, text_embeds)
+    return out.masked_fill(is_pad[..., None], 0)
 
 
 def prefill(

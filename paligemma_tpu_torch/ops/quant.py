@@ -280,30 +280,43 @@ q4_matmul.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _a8_rescale(acc: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
+                acc_reduce: Optional[Reduce], row_select: Optional[Reduce]) -> torch.Tensor:
+    """The int32 sums (..., O) reduced by ``acc_reduce``, times the rows'
+    scales (...) that ``row_select`` keeps and the output rows' scales."""
+    if acc_reduce is not None:
+        acc = acc_reduce(acc)
+    if row_select is not None:
+        xs = row_select(xs)
+    return (acc.float() * xs[..., None] * scale).to(dtype)
+
+
 def a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-                    amax_reduce: Optional[Reduce] = None, acc_reduce: Optional[Reduce] = None) -> torch.Tensor:
+                    amax_reduce: Optional[Reduce] = None, acc_reduce: Optional[Reduce] = None,
+                    row_select: Optional[Reduce] = None) -> torch.Tensor:
     """Plain version of ``a8_matmul`` (any device). The product is taken in
     float64, exact for these integer sums (fp32 is not: 127^2 x 2048 is
     above 2^24)."""
     xq, xs = quantize_rows_s8_rcp(x, amax_reduce)
     acc = (xq.double() @ q.double().t()).to(torch.int32)
-    if acc_reduce is not None:
-        acc = acc_reduce(acc)
-    return (acc.float() * xs[..., None] * scale).to(x.dtype)
+    return _a8_rescale(acc, xs, scale, x.dtype, acc_reduce, row_select)
 
 
 def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
-              amax_reduce: Optional[Reduce] = None, acc_reduce: Optional[Reduce] = None) -> torch.Tensor:
+              amax_reduce: Optional[Reduce] = None, acc_reduce: Optional[Reduce] = None,
+              row_select: Optional[Reduce] = None) -> torch.Tensor:
     """x (..., D) quantized to int8 per row @ int8 (O, D)^T with an exact
     int32 product, rescaled per row and per output row -> (..., O) in
     x.dtype. On the card the product is ``torch._int_mm`` (cuBLASLt), which
     takes more than 16 rows and widths that are multiples of 8; anything
     else raises. A row-parallel product (x and q hold a slice of D) passes
     ``amax_reduce`` (the rows' absmax over the slices: a max over the
-    model group) and ``acc_reduce`` (the int32 sums over the slices: exact),
-    so every rank gets the whole product's bits."""
+    model group) and ``acc_reduce`` (the int32 sums (..., O) over the
+    slices: exact), so every rank gets the whole product's bits; a
+    sequence-parallel one's ``acc_reduce`` keeps this rank's rows of the
+    sums and ``row_select`` the same rows of the rows' scales (...)."""
     if x.device.type == "cpu":
-        return a8_matmul_plain(x, q, scale, amax_reduce, acc_reduce)
+        return a8_matmul_plain(x, q, scale, amax_reduce, acc_reduce, row_select)
     if x.device.type != "cuda":
         raise ValueError(f"a8_matmul: activations must be on a CUDA device, got {x.device}")
     refuse_grad("a8_matmul", x, q, scale)
@@ -318,10 +331,8 @@ def a8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _check_weight("a8_matmul", x2, q, scale, torch.int8, (o, d))
     xq, xs = quantize_rows_s8_rcp(x2, amax_reduce)
     acc = torch._int_mm(xq, q.t())  # the (O, D) weight as a column-major (D, O)
-    if acc_reduce is not None:
-        acc = acc_reduce(acc)
     a8_matmul.calls += 1
-    return (acc.float() * xs[:, None] * scale).to(x.dtype).reshape(*lead, o)
+    return _a8_rescale(acc.reshape(*lead, o), xs.reshape(lead), scale, x.dtype, acc_reduce, row_select)
 
 
 a8_matmul.calls = 0

@@ -18,7 +18,13 @@ The autograd ``Function``s are Megatron's:
   axis to every rank; the backward takes this rank's slice.
 - ``gather_seq`` / ``scatter_seq``: the sequence-parallel pair along T (axis
   1): all-gather before a column-parallel product (backward: reduce-scatter)
-  and reduce-scatter after a row-parallel one (backward: all-gather).
+  and reduce-scatter after a row-parallel one (backward: all-gather). A T
+  that does not split ``size`` ways is padded with zero rows up to the next
+  multiple (``seq_shard``, ``scatter_seq``), and the gather drops the
+  padding again (``gather_seq(..., length=T)``): the padding rows ride in the
+  last ranks' shards, stay zero through the residual stream (every block
+  adds the scatter of zero rows to them) and never reach a product, an
+  attention or a cache.
 - ``send_next`` / ``recv_prev``: the pipeline's point-to-point. The
   backward of a send receives the gradient from the next stage; the
   backward of a receive sends the gradient back. ``send_next`` returns a
@@ -188,24 +194,24 @@ class _GatherFromModel(torch.autograd.Function):
 
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, length):
         ctx.group = group
-        return all_gather(x, group, 1)
+        return all_gather(x, group, 1)[:, :length].contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_scatter(grad, ctx.group, 1), None
+        return reduce_scatter(pad_seq(grad, ctx.group), ctx.group, 1), None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.group = group
-        return reduce_scatter(x, group, 1)
+        ctx.group, ctx.length = group, x.shape[1]
+        return reduce_scatter(pad_seq(x, group), group, 1)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_gather(grad, ctx.group, 1), None
+        return all_gather(grad, ctx.group, 1)[:, :ctx.length].contiguous(), None
 
 
 def copy_to_model(x: torch.Tensor, group: Group) -> torch.Tensor:
@@ -224,20 +230,31 @@ def gather_from_model(x: torch.Tensor, group: Group, dim: int = -1) -> torch.Ten
     return _GatherFromModel.apply(x, group, dim % x.dim())
 
 
-def gather_seq(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """(B, T / size, ...) shards -> (B, T, ...) on every rank."""
-    return _GatherSeq.apply(x, group)
+def gather_seq(x: torch.Tensor, group: Group, length: Optional[int] = None) -> torch.Tensor:
+    """(B, n, ...) shards -> the first ``length`` rows (default: all
+    ``size * n``) of their concatenation along T, on every rank."""
+    return _GatherSeq.apply(x, group, group.size * x.shape[1] if length is None else length)
 
 
 def scatter_seq(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """(B, T, ...) partial sums -> this rank's (B, T / size, ...) of their sum."""
+    """(B, T, ...) partial sums -> this rank's (B, ceil(T / size), ...) of
+    their sum (T padded with zero rows to a multiple of ``size``)."""
     return _ScatterSeq.apply(x, group)
 
 
+def pad_seq(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` with zero rows appended along T (axis 1) up to a multiple of
+    the group's size (``x`` itself when T splits)."""
+    pad = -x.shape[1] % group.size
+    if not pad:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))], dim=1)
+
+
 def seq_shard(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """This rank's ``1 / size`` of ``x`` along T (axis 1), no communication."""
-    if x.shape[1] % group.size:
-        raise ValueError(f"sequence parallelism: T = {x.shape[1]} does not split {group.size} ways")
+    """This rank's ``1 / size`` of ``x`` along T (axis 1) padded by
+    ``pad_seq``, no communication."""
+    x = pad_seq(x, group)
     n = x.shape[1] // group.size
     return x[:, group.rank * n:(group.rank + 1) * n]
 
@@ -289,16 +306,18 @@ def recv_prev(anchor: torch.Tensor, shape: Sequence[int], dtype: torch.dtype, gr
 class ModelParallel:
     """The tensor-parallel side of one sharded module: the model group, and
     the collectives at the entry and exit of its column- and row-parallel
-    products (``enter`` / ``leave``), plain TP or, with ``seq``, sequence
-    parallel."""
+    products (``enter`` / ``leave``), plain TP or, with ``seq`` (the
+    sequence's length), sequence parallel."""
 
     def __init__(self, group: Group):
         self.group = group
 
-    def enter(self, x: torch.Tensor, seq: bool = False) -> torch.Tensor:
-        return gather_seq(x, self.group) if seq else copy_to_model(x, self.group)
+    def enter(self, x: torch.Tensor, seq: int = 0) -> torch.Tensor:
+        """``seq``: the whole sequence's T under sequence parallelism (x is
+        this rank's padded shard), 0 without."""
+        return gather_seq(x, self.group, seq) if seq else copy_to_model(x, self.group)
 
-    def leave(self, y: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    def leave(self, y: torch.Tensor, seq: int = 0) -> torch.Tensor:
         return scatter_seq(y, self.group) if seq else reduce_from_model(y, self.group)
 
 

@@ -128,16 +128,17 @@ def _run_rank(rank: int, fn: Callable, world_size: int, backend: str, device: st
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world_size: int, backend: str = "gloo", device: str = "cpu", *args,
+def spawn(fn: Callable, world_size: int, backend: str, device: str, *args,
           timeout_s: float = 300.0) -> List[Any]:
     """Run ``fn(*args)`` on ``world_size`` spawned processes, each with the
-    default group initialized (``backend``); returns each rank's return
-    value (saved with ``torch.save``: keep it on the host). On the CPU each
-    process uses one thread; with ``device="cuda"`` rank r uses card r mod
-    the card count (every rank on one card when there is one). A rank that
-    raises fails the run (``torch.multiprocessing.ProcessRaisedException``)
-    with the traceback of the rank that raised first; a collective that
-    waits longer than ``timeout_s`` raises in its rank."""
+    default group initialized (``backend``: "gloo" or "nccl"); returns each
+    rank's return value (saved with ``torch.save``: keep it on the host).
+    ``device`` has no default: "cuda" puts rank r on card r mod the card
+    count (every rank on one card when there is one), "cpu" runs each
+    process on one CPU thread. A rank that raises fails the run
+    (``torch.multiprocessing.ProcessRaisedException``) with the traceback
+    of the rank that raised first; a collective that waits longer than
+    ``timeout_s`` raises in its rank."""
     import torch.multiprocessing as mp
 
     out_dir = tempfile.mkdtemp(prefix="pg_spawn_")

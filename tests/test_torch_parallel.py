@@ -15,6 +15,14 @@ that shape.
   at JAX's bar, 2e-4.
 - The sharded decode at (2, 2); the sequence-parallel prefill, the int8
   weight-only and the a8 prefill at (1, 2).
+- The sequence-parallel prefill at (1, 4), where tiny's 22 tokens do not
+  split 4 ways: the logits against JAX's sequence-parallel prefill on the
+  same mesh and the unsharded one at 2e-4, the cache K against the
+  unsharded cache (nothing written past T). The a8 prefill under sequence
+  parallelism at (1, 2) and (1, 4): within 2e-4 of the port's unsharded a8
+  model and within the repo's 2% bar of JAX's sequence-parallel a8
+  prefill; one row-parallel a8 product's rows bit for bit the whole
+  product's.
 - ``shard_params``: each rank's bytes are those the rules give, and its
   gate and up rows are its slices of each half.
 - The DP x TP LoRA step at (2, 2) against JAX's step and the port's
@@ -90,8 +98,8 @@ def _train_case(cfg, ids, pix, unequal: bool):
 
 
 CHECKS = {
-    (1, 2): {"sp": True, "int8": True, "a8": True, "bytes": True},
-    (1, 4): {"bytes": True},
+    (1, 2): {"sp": True, "int8": True, "a8": True, "a8_sp": True, "bytes": True},
+    (1, 4): {"sp": True, "a8_sp": True, "bytes": True},
     (2, 2): {"decode": True, "train": False, "train_unequal": True},
 }
 TRAIN_LR = 1e-2
@@ -119,7 +127,7 @@ def runs(cfg, params, inputs):
     return get
 
 
-def _jax_prefill(cfg, params, ids, pix, shape, qparams=None):
+def _jax_prefill(cfg, params, ids, pix, shape, qparams=None, sequence_parallel=False):
     """JAX's sharded prefill (logits, cache K) on a (data, model) mesh."""
     data, model = shape
     p = params if qparams is None else qparams
@@ -127,8 +135,25 @@ def _jax_prefill(cfg, params, ids, pix, shape, qparams=None):
     mesh = jmake_mesh(data=data, model=model, devices=jax.devices()[: data * model])
     sp = jax.device_put(p, jshd.param_shardings(cfg, mesh, params=qparams))
     sc = jax.device_put(cache, jshd.cache_shardings(mesh))
-    logits, new = jsteps.make_sharded_prefill(cfg, mesh, params=qparams)(sp, ids, pix, sc)
+    run = jsteps.make_sharded_prefill(cfg, mesh, sequence_parallel=sequence_parallel, params=qparams)
+    logits, new = run(sp, ids, pix, sc)
     return np.asarray(logits), np.asarray(new.k)
+
+
+def _jax_a8_prefill(cfg, params, ids, pix, shape, sequence_parallel=False):
+    """JAX's sharded int8 prefill with ``runtime.prefill_a8`` on (tiny's
+    prompt is 22 tokens: ``a8_min_seq`` 8): the logits."""
+    qp = jquantize(params, llm_only=True)
+    jax.clear_caches()  # the a8 flag is trace-time state
+    old_min = runtime.a8_min_seq
+    runtime.set_prefill_a8(True)
+    runtime.a8_min_seq = 8
+    try:
+        return _jax_prefill(cfg, params, ids, pix, shape, qparams=qp, sequence_parallel=sequence_parallel)[0]
+    finally:
+        runtime.set_prefill_a8(False)
+        runtime.a8_min_seq = old_min
+        jax.clear_caches()
 
 
 def _rows(x, r, data):
@@ -188,6 +213,43 @@ def test_sequence_parallel_prefill_matches(runs, unsharded):
     for r in runs((1, 2)):
         np.testing.assert_allclose(r["sp"], unsharded[0], **BAR)
         np.testing.assert_allclose(r["sp"], r["logits"], **BAR)
+
+
+def test_sequence_parallel_prefill_at_an_uneven_length_matches_jax(cfg, params, inputs, runs, unsharded):
+    """T = 22 over 4 ranks (padded to 24): the logits within 2e-4 of JAX's
+    sequence-parallel prefill on a (1, 4) mesh and of the unsharded one;
+    the cache K within 2e-4 of the unsharded cache's up to T and zero past
+    it (the padding rows are never written)."""
+    ids, pix = inputs
+    t = ids.shape[1]
+    assert t % 4
+    ref_logits, ref_k = _jax_prefill(cfg, params, ids, pix, (1, 4), sequence_parallel=True)
+    for r in runs((1, 4)):
+        np.testing.assert_allclose(r["sp"], ref_logits, **BAR)
+        np.testing.assert_allclose(r["sp"], unsharded[0], **BAR)
+        np.testing.assert_allclose(r["sp_k"][:, :, :t], _rank_k(ref_k, r, 1)[:, :, :t], **BAR)
+        np.testing.assert_allclose(r["sp_k"][:, :, :t], _rank_k(unsharded[1], r, 1)[:, :, :t], **BAR)
+        np.testing.assert_allclose(r["sp_k"], r["k"], **BAR)
+        assert not r["sp_k"][:, :, t:].any()
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["1x2", "1x4"])
+def test_sequence_parallel_a8_prefill_matches_jax(cfg, params, inputs, runs, shape):
+    """``prefill_a8`` under sequence parallelism: the rank's logits within
+    2e-4 of the port's unsharded a8 model, and within the repo's bar between
+    the packages' bf16 trunks (2% of the largest logit, as
+    ``test_sharded_quantized_prefill_matches_jax``) of JAX's
+    sequence-parallel a8 prefill on the same mesh; layer 0's down product
+    under sequence parallelism (int32 sums reduce-scattered along T) bit
+    for bit the whole a8 product's rows of this rank."""
+    ids, pix = inputs
+    ref = _jax_a8_prefill(cfg, params, ids, pix, shape, sequence_parallel=True)
+    for r in runs(shape):
+        np.testing.assert_allclose(r["a8_sp"], r["a8_sp_whole"], **BAR)
+        np.testing.assert_allclose(r["a8_sp"], ref, rtol=0, atol=LOGIT_BAR * float(np.abs(ref).max()))
+        got, want = r["a8_sp_rows"]
+        assert got.shape == want.shape == (2, -(-ids.shape[1] // shape[1]), got.shape[-1])
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("arm", ["int8", "a8"])

@@ -17,7 +17,8 @@ import torch
 
 from paligemma_tpu_torch import quantization, tiny_config
 from paligemma_tpu_torch.models import gemma, paligemma
-from paligemma_tpu_torch.parallel import pipeline, sharding, steps
+from paligemma_tpu_torch.ops.kernels import KERNELS
+from paligemma_tpu_torch.parallel import comm, pipeline, sharding, steps
 from paligemma_tpu_torch.parallel.mesh import make_mesh
 from paligemma_tpu_torch.utils.convert import from_jax_params, lora_from_jax, lora_to_jax
 
@@ -38,9 +39,11 @@ def _prefill(model, cfg, mesh, ids, pix, extra: int = 4, sequence_parallel: bool
 
 def mesh_worker(tree, ids, pix, data, model_size, checks):
     """The sharded prefill on a (data, model) mesh, and the ``checks`` asked
-    for: "decode" (one step after it), "sp" (sequence parallel), "int8" and
-    "a8" (quantized prefills), "bytes" (the rank's bytes and its gate/up
-    rows), "train" / "train_unequal" (one DP x TP LoRA step; see
+    for: "decode" (one step after it), "sp" (sequence parallel: its logits
+    and cache K), "int8" and "a8" (quantized prefills), "a8_sp" (the a8
+    prefill under sequence parallelism, and one row-parallel a8 product's
+    rows against the whole product's), "bytes" (the rank's bytes and its
+    gate/up rows), "train" / "train_unequal" (one DP x TP LoRA step; see
     ``_train``)."""
     cfg = tiny_config()
     mesh = make_mesh(data, model_size, device="cpu")
@@ -55,16 +58,21 @@ def mesh_worker(tree, ids, pix, data, model_size, checks):
         out["decode_tok"] = tok.numpy()
         out["decode"] = _np(steps.make_sharded_decode(cfg, mesh)(model, tok, cache)[0])
     if "sp" in checks:
-        out["sp"] = _np(_prefill(model, cfg, mesh, ids, pix, sequence_parallel=True)[0])
-    for arm in ("int8", "a8"):
+        sp_logits, sp_cache = _prefill(model, cfg, mesh, ids, pix, sequence_parallel=True)
+        out["sp"], out["sp_k"] = _np(sp_logits), _np(sp_cache.k)
+    for arm in ("int8", "a8", "a8_sp"):
         if arm in checks:  # the rank's and the unsharded quantized model's logits
-            if arm == "a8":
+            a8 = arm != "int8"
+            if a8:
                 quantization.A8_MIN_SEQ = 8  # the tiny prompt is 22 tokens (JAX's a8_min_seq = 8)
-            qf = quantization.quantize_params(full, llm_only=True, prefill_a8=arm == "a8")
-            out[arm] = _np(_prefill(sharding.shard_params(qf, cfg, mesh), cfg, mesh, ids, pix)[0])
+            qf = quantization.quantize_params(full, llm_only=True, prefill_a8=a8)
+            qm = sharding.shard_params(qf, cfg, mesh)
+            out[arm] = _np(_prefill(qm, cfg, mesh, ids, pix, sequence_parallel=arm == "a8_sp")[0])
             cache = gemma.init_cache(cfg.text_config, ids.shape[0], ids.shape[1] + 4, torch.float32, "cpu")
             whole = paligemma.prefill(qf, torch.from_numpy(ids), torch.from_numpy(pix), cache)[0]
             out[arm + "_whole"] = _np(sharding.shard_batch(whole, mesh))
+            if arm == "a8_sp":
+                out["a8_sp_rows"] = _a8_rows(qf, qm, mesh, ids.shape[1])
     if "bytes" in checks:
         out["bytes"] = quantization.params_bytes(model)
         out["want_bytes"] = sharding.rank_bytes(full, cfg, mesh.model)
@@ -80,6 +88,20 @@ def mesh_worker(tree, ids, pix, data, model_size, checks):
         if name in checks:
             out[name] = _train(full, cfg, mesh, **checks[name])
     return out
+
+
+def _a8_rows(qf, qm, mesh, t):
+    """Layer 0's down product under sequence parallelism on seeded
+    activations of T = ``t`` rows (a row-parallel a8 call: this rank's
+    slice of the contraction, its rows of T padded to the group's size),
+    and the whole product's same rows: (rank rows, whole rows) as numpy."""
+    whole_w, rank_w = qf.llm.layers[0].down, qm.llm.layers[0].down
+    d_in, n = whole_w.weight.shape[1], rank_w.weight.shape[1]
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, t, d_in).astype(np.float32))
+    m = mesh.model_rank
+    got = gemma.row_parallel(x[..., m * n:(m + 1) * n], rank_w, KERNELS, qm.llm.layers[0].mlp_tp, seq=t)
+    want = comm.seq_shard(KERNELS.a8(x, whole_w.weight, whole_w.scale), mesh.model_group)
+    return _np(got), _np(want)
 
 
 def _train(full, cfg, mesh, batch, adapter, lr):
