@@ -1,0 +1,8 @@
+"""1 - (the union of the device's operations) / (the traced window), in
+percent."""
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
