@@ -390,6 +390,13 @@ class Request:
         # Set (from any thread) to stop decoding this request at the next
         # chunk boundary.
         self.cancelled = False
+        # Its way to the first token on ``time.perf_counter_ns``'s clock, each
+        # None until it happens: submitted, taken into a join group, its join
+        # enqueued, its first token held by the engine's thread.
+        self.t_submit: Optional[int] = None
+        self.t_taken: Optional[int] = None
+        self.t_joined: Optional[int] = None
+        self.t_first: Optional[int] = None
 
 
 class ContinuousBatcher:
@@ -791,6 +798,7 @@ class ContinuousBatcher:
             raise ValueError(f"max_new_tokens {req.max_new_tokens} exceeds the engine budget "
                              f"{self.max_new_tokens} (cache is sized statically)")
         self._ensure_prefetch()
+        req.t_submit = time.perf_counter_ns()
         with self._prep_cv:
             self.pending.append(req)
             self._prep_cv.notify_all()
@@ -1042,6 +1050,9 @@ class ContinuousBatcher:
         self._pending_first.append((joiners, first))
         self.host_t["insert_dispatch"] += time.perf_counter() - t_ins0
         self.host_t["join_total"] += time.perf_counter() - t_join0
+        t_joined = time.perf_counter_ns()
+        for r in reqs:
+            r.t_joined = t_joined
         self.join_groups += 1
         self.join_log.append((g_b, tuple(r.id for r in reqs)))
 
@@ -1098,6 +1109,7 @@ class ContinuousBatcher:
                     if req.on_tokens is not None:
                         req.on_tokens([], True)
                     continue
+                req.t_taken = time.perf_counter_ns()
                 joiners.append((slot, req))
                 break
         if not joiners:
@@ -1199,6 +1211,7 @@ class ContinuousBatcher:
             off += f.numel()
         self.host_t["fetch"] += time.perf_counter() - t_fetch0
         t_dist0 = time.perf_counter()
+        t_held = time.perf_counter_ns()
         if use_spec:
             counts_np, toks_np = packed_np[:, 0], packed_np[:, 1:]
             self.spec_verifies += self.spec_chunk * sum(1 for i in range(self.n_slots) if active[i] is not None)
@@ -1232,6 +1245,7 @@ class ContinuousBatcher:
                 if self.slot_req[slot] is not req:
                     continue  # the join failed and was retried elsewhere
                 req.tokens.append(int(val))
+                req.t_first = t_held
                 self.tokens_delivered += 1
                 touched.append(req)
                 if int(val) == self.eos_token_id or req.max_new_tokens <= 1:

@@ -1,15 +1,13 @@
-"""Tracing and timing utilities (port of ``paligemma_tpu/utils/profiling.py``).
+"""Timing utilities of the port.
 
 - ``fence``: ``torch.cuda.synchronize`` on the CUDA devices of the tensors
   given (a no-op for CPU tensors): PyTorch returns before the card is done.
 - ``timed``: ``perf_counter`` bracketed by a fence on both sides.
-- ``trace``: a ``torch.profiler`` context that writes a Chrome trace.
-- ``annotate``: ``torch.profiler.record_function``, a named region in a trace.
+
+Traces are taken with ``torch.profiler`` directly (``benchmark/harness/trace.py``).
 """
 from __future__ import annotations
 
-import contextlib
-import os
 import time
 from typing import Any, Callable, Iterator, Tuple, Union
 
@@ -49,22 +47,3 @@ def timed(fn: Callable[[], Any], device: Union[str, torch.device] = "cuda") -> T
     out = fn()
     fence([out, device])
     return out, time.perf_counter() - t0
-
-
-@contextlib.contextmanager
-def trace(log_dir: str, device: Union[str, torch.device] = "cuda"):
-    """``torch.profiler`` over the block (CPU ops, and the kernels of a CUDA
-    ``device`` through CUPTI); writes ``log_dir/trace.json``, a Chrome trace
-    (chrome://tracing, Perfetto). Yields the profiler."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def annotate(name: str):
-    """A named region inside a trace."""
-    return torch.profiler.record_function(name)

@@ -10,6 +10,7 @@ be JAX's; ``test_torch_sampling.py`` holds them to JAX's nucleus).
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -447,12 +448,13 @@ def test_memory_probes_and_tree_bytes(setup):
     assert memory.peak_memory_mb("cpu") == 0.0
 
 
-def test_profiling_timed_trace_and_annotate(tmp_path):
+def test_profiling_timed_trace_and_annotate():
+    # The module keeps ``timed`` and ``fence``; traces are taken with
+    # ``torch.profiler`` itself.
     x = torch.arange(6.0)
     out, seconds = profiling.timed(lambda: x * 2, device="cpu")
     assert torch.equal(out, x * 2) and seconds >= 0.0
+    _, slept = profiling.timed(lambda: time.sleep(0.01), device="cpu")
+    assert slept >= 0.01
     profiling.fence([x, {"y": x}])  # CPU tensors: nothing to wait for
-    with profiling.trace(str(tmp_path), device="cpu"):
-        with profiling.annotate("pg_decode_region"):
-            (x * 3).sum()
-    assert "pg_decode_region" in (tmp_path / "trace.json").read_text()
+    assert not hasattr(profiling, "trace") and not hasattr(profiling, "annotate")
