@@ -27,7 +27,10 @@ reference:
   bits and copies nothing.
 - The join's ``serving.batched_prefill`` is one captured graph per (group
   batch, prompt bucket) (``_JoinPrefill``), the counterpart of the jitted
-  one; ``_insert_group`` stays eager.
+  one; ``_insert_group`` stays eager. The reference pads every group of 2
+  or more to ``n_slots`` (each shape is a compile); here a group runs at
+  the smallest rung of ``join_batches(n_slots)`` that holds it (1, the
+  powers of two below ``n_slots``, ``n_slots``), each rung one graph.
 
 Writes past a buffer: the reference drops out-of-bounds scatter writes and
 clamps ``dynamic_update_slice``, and relies on both (a freed slot keeps
@@ -348,6 +351,13 @@ class _JoinPrefill(generation._Captured):
 # ---------------------------------------------------------------------------
 
 
+def join_batches(n_slots: int) -> tuple:
+    """The group batches a join prefill runs at: 1, the powers of two below
+    ``n_slots``, and ``n_slots``. A group of g joins at the smallest that
+    holds g."""
+    return tuple(sorted({2**i for i in range(n_slots.bit_length()) if 2**i < n_slots} | {1, n_slots}))
+
+
 def window_buckets(prompt_budget: int, chunk: int, slack: int, s_len: int) -> tuple:
     """The cache window's widths (the reference's ladder, multiples of 128
     up to ``s_len``): the floor of a plain chunk, of the worst speculative
@@ -407,7 +417,9 @@ class ContinuousBatcher:
       model: a ``PaliGemma`` on its device (the engine runs where it is),
         or a rank's tensor-parallel model (every rank runs the engine).
       processor: a ``PaliGemmaProcessor``.
-      n_slots: decode batch width (one trash row rides along).
+      n_slots: decode batch width (one trash row rides along). A join group
+        of g runs its prefill at the smallest of ``join_batches(n_slots)``
+        holding g, its pad rows landing in the trash row.
       prompt_budget: an int, or prompt buckets: a join group prefills at the
         smallest bucket covering its prompts (image tokens + BOS + text).
       max_new_tokens: each slot's budget (the cache is sized for it).
@@ -534,12 +546,17 @@ class ContinuousBatcher:
         self.join_groups = 0
         # The recent join groups, (group batch, the members' request ids).
         self.join_log: deque = deque(maxlen=1024)
+        # Rows run by join prefills (prefix cache hits run none), and the
+        # pad rows among them.
+        self.join_rows = 0
+        self.join_pad_rows = 0
         # A speculative chunk writes up to spec_chunk x k positions past a
         # row's length plus k; size the cache for either flavour's worst case.
         slack = max(chunk, self.spec_chunk * self.spec_k) + self.spec_k if self.spec_k else chunk
         s_len = self.prompt_budget + max_new_tokens + slack
         b = n_slots + 1  # the trash row takes a group's pad rows
         self.trash_row = n_slots
+        self.join_batches = join_batches(n_slots)
         self.s_len = s_len
         self.max_advance = slack
         self.window_buckets = window_buckets(self.prompt_budget, chunk, slack, s_len) if kv_window else None
@@ -698,20 +715,22 @@ class ContinuousBatcher:
     @torch.no_grad()
     def prepare(self) -> float:
         """Capture every graph this engine can run before traffic needs it,
-        on its empty state: the join prefill of each prompt bucket at group
-        batch 1 and n_slots, and the step of every window and chunk flavour
-        (plain; each speculative rung), greedy and sampled. Nothing on the
-        CPU, nor for a model sharded over gloo. Returns the captures' host
-        ms."""
+        on its empty state: the join prefill of each prompt bucket at every
+        group batch of ``join_batches`` (each uploaded to the device, so
+        that no join's first replay waits to upload it), and the step of
+        every window and chunk flavour (plain; each speculative rung),
+        greedy and sampled. Nothing on the CPU, nor for a model sharded
+        over gloo. Returns the captures' host ms."""
         if not self.graphs:
             return 0.0
         t0 = time.perf_counter()
         size = self.cfg.vision_config.image_size
         for bucket in self.prompt_budgets:
-            for g_b in sorted({1, self.n_slots}):
+            for g_b in self.join_batches:
                 self._prefill(np.zeros((g_b, bucket), np.int32),
                               torch.zeros((g_b, 3, size, size), dtype=self.pix_dtype, device=self.device),
                               np.full((g_b,), bucket, np.int32), self._group_adapters([None] * g_b))
+                self._prefills[(g_b, bucket)].upload(self.device)
         if not self.spec_k:
             flavours = (0,)
         elif self.spec_adaptive:
@@ -967,12 +986,13 @@ class ContinuousBatcher:
 
     def _join_group(self, joiners: List) -> None:
         """One bucketed prefill and one scatter insert for a join group,
-        padded to batch 1 or n_slots (pad rows repeat sample 0 and land in
-        the trash row). The first tokens stay on the device until the next
+        padded to the smallest group batch of ``join_batches`` that holds it
+        (pad rows repeat sample 0, ride the zero adapter and land in the
+        trash row). The first tokens stay on the device until the next
         chunk's read (``_pending_first``)."""
         t_join0 = time.perf_counter()
         g = len(joiners)
-        g_b = 1 if g == 1 else self.n_slots
+        g_b = next(b for b in self.join_batches if b >= g)
         reqs = [r for _, r in joiners]
         dev = self.device
         # Pad rows ride the zero adapter.
@@ -1004,7 +1024,9 @@ class ContinuousBatcher:
                     if self._staged:
                         sids, sdev, sync = self._staged[0]
                         if sids[:g] == tuple(r.id for r in reqs):
-                            pix_u8 = sdev
+                            # A wave holds n_slots images; the group's
+                            # batch takes its first g_b.
+                            pix_u8 = sdev[:g_b]
                             self.staged_hits += 1
                             self._staged.popleft()
                             if g != self.n_slots:
@@ -1025,6 +1047,8 @@ class ContinuousBatcher:
             t_pf0 = time.perf_counter()
             logits, temp_kv = self._prefill(ids, pix, valid, grouped)
             self.host_t["prefill_dispatch"] += time.perf_counter() - t_pf0
+            self.join_rows += g_b
+            self.join_pad_rows += g_b - g
             if key_c is not None:
                 # The entry owns copies: the next join overwrites the runner's.
                 self._prefill_cache[key_c] = (valid, logits.clone(), tuple(x.clone() for x in temp_kv), ids)

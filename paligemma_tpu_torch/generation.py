@@ -66,7 +66,9 @@ choice of the first token stays outside the prefill, as the reference's
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import time
 import weakref
 from typing import Callable, Iterator, List, NamedTuple, Optional, Tuple, Union
@@ -216,6 +218,24 @@ class _Captured:
     def _replay(self) -> None:
         self.graph.replay()
         kernels.add_launch_counts(self.counts)
+
+    def upload(self, dev: torch.device) -> None:
+        """Upload the captured graph to the device now. Its first replay
+        would, and that upload waits behind the stream's pending copies: a
+        join's first replay behind its pixels' copy held the host until the
+        chunk ahead of it ended."""
+        rc = _libcuda().cuGraphUpload(ctypes.c_void_p(self.graph.raw_cuda_graph_exec()),
+                                      ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        if rc:
+            raise RuntimeError(f"cuGraphUpload failed: CUresult {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphUpload.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.cuGraphUpload.restype = ctypes.c_int
+    return lib
 
 
 # ---------------------------------------------------------------------------

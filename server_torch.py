@@ -558,7 +558,8 @@ def make_handler(engine: Engine, batcher=None, admission: Admission = None, metr
                 m.update(slots_total=b.n_slots, slots_occupied=sum(r is not None for r in b.slot_req),
                          engine_queue=len(b.pending) + batcher.queue.qsize(),
                          requests_completed=len(b.completed), tokens_delivered=b.tokens_delivered,
-                         chunks_run=b.chunks_run, join_groups=b.join_groups,
+                         chunks_run=b.chunks_run, join_groups=b.join_groups, join_rows=b.join_rows,
+                         join_pad_rows=b.join_pad_rows,
                          prefill_cache_hits=b.prefill_cache_hits, staged_upload_hits=b.staged_hits,
                          staged_upload_misses=b.staged_misses, pixel_affine=b.pixel_affine,
                          graphs_captured=len(b.graph_log))
@@ -794,8 +795,9 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _warm_continuous(batcher: ContinuousRunner, size: int, prompt_buckets, n_slots: int) -> None:
-    """Capture the join and step graphs of every prompt bucket before
-    traffic: a batch-1 join, then n_slots concurrent requests (one group)."""
+    """Run every prompt bucket once before traffic (the runner's engine
+    captured its graphs in ``prepare()``): a batch-1 join, then n_slots
+    concurrent requests, so each eager path of a join has run."""
     from PIL import Image
 
     for extra in prompt_buckets:

@@ -14,6 +14,10 @@ accepted and rejected, and EOS occurs), the prompts and images of
 - The port's ``ContinuousBatcher`` against JAX's on 2 slots, 4 requests
   (two queue), chunk 3: plain, speculative (k = 4, n-gram) and ``kv_quant``
   + ``kv_window``, every request's tokens equal.
+- Join groups at the smallest group batch of ``join_batches`` that holds
+  them (JAX's engine pads every group of 2 or more to ``n_slots``): groups
+  of 3 and 5 at 8 slots join at 4 and 8 with JAX's tokens, and a staged
+  wave of ``n_slots`` images feeds a smaller group its first rows.
 - Ports of ``tests/test_continuous.py`` and ``tests/test_continuous_spec.py``
   (without the sharded engine; LoRA in ``test_torch_multi_lora.py``) against the port's batch-1
   ``generate``, and a free slot stepping past a shrunk window.
@@ -36,7 +40,7 @@ from paligemma_tpu.processing import PaliGemmaProcessor as JProcessor
 import paligemma_tpu_torch
 from paligemma_tpu_torch import generation, quantization
 from paligemma_tpu_torch import serving as tserving
-from paligemma_tpu_torch.continuous import ContinuousBatcher
+from paligemma_tpu_torch.continuous import ContinuousBatcher, join_batches
 from paligemma_tpu_torch.models import gemma
 from paligemma_tpu_torch.processing import ByteTokenizer, PaliGemmaProcessor
 from paligemma_tpu_torch.utils.convert import from_jax_params
@@ -339,6 +343,58 @@ def test_prompt_buckets(setup):
     eng.close()
     assert r_huge.error is not None and "exceeds the largest prompt budget" in str(r_huge.error)
     assert sorted(k for k in eng._prefills) == [(1, n_img + 8), (1, n_img + 160), (2, n_img + 160)]
+
+
+@pytest.mark.parametrize("n_slots, want", [(1, (1,)), (2, (1, 2)), (8, (1, 2, 4, 8)),
+                                            (24, (1, 2, 4, 8, 16, 24)), (32, (1, 2, 4, 8, 16, 32))])
+def test_join_batches(n_slots, want):
+    assert join_batches(n_slots) == want
+
+
+def _two_groups(eng, setup):
+    """A group of 3 joins on free slots and runs a chunk; 5 more submitted
+    then join as one group in the 5 slots left, while the 3 decode."""
+    images = setup[5]
+    first = [eng.submit(PROMPTS[i], images[i], max_new_tokens=9) for i in range(3)]
+    eng.step()
+    second = [eng.submit(PROMPTS[i % 4], images[(i + 1) % 4], max_new_tokens=m)
+              for i, m in zip(range(3, 8), [4, 7, 9, 5, 6])]
+    eng.run()
+    return first + second
+
+
+def test_groups_join_at_the_smallest_batch_that_holds_them(setup):
+    params, cfg_j, pj, model, pt, images = setup
+    jeng = jcont.ContinuousBatcher(params, cfg_j, pj, n_slots=8, max_new_tokens=9, chunk=3,
+                                   cache_dtype=jnp.float32, prefetch=False)
+    want = [r.tokens for r in _two_groups(jeng, setup)]
+    eng = ContinuousBatcher(model, pt, n_slots=8, max_new_tokens=9, chunk=3, prefetch=False)
+    reqs = _two_groups(eng, setup)
+    eng.close()
+    assert all(r.done and r.error is None for r in reqs)
+    assert list(eng.join_log) == [(4, tuple(r.id for r in reqs[:3])), (8, tuple(r.id for r in reqs[3:]))]
+    assert eng.join_rows == 12 and eng.join_pad_rows == 4
+    assert sorted(eng._prefills) == [(4, eng.prompt_budget), (8, eng.prompt_budget)]
+    assert [r.tokens for r in reqs] == want
+    for i, r in enumerate(reqs):
+        assert r.tokens == oracle(setup, r.prompt, r.image, r.max_new_tokens), i
+
+
+def test_staged_wave_feeds_a_smaller_group_its_first_rows(setup):
+    images = setup[5]
+    eng = _engine(setup, n_slots=4, max_new_tokens=9, chunk=3, prefetch=False)
+    held = [eng.submit(PROMPTS[i], images[i], max_new_tokens=9) for i in (0, 1)]
+    eng.step()  # the two join and keep two slots
+    wave = [eng.submit(PROMPTS[i], images[3 - i], max_new_tokens=5) for i in range(4)]
+    for r in wave:
+        r.prep = eng._preprocess_one(r)
+    eng._try_stage()
+    assert [sids for sids, _, _ in eng._staged] == [tuple(r.id for r in wave)]
+    eng.run()
+    eng.close()
+    assert eng.staged_hits == 1 and eng.join_log[1] == (2, (wave[0].id, wave[1].id))
+    for r in held + wave:
+        assert r.error is None and r.tokens == oracle(setup, r.prompt, r.image, r.max_new_tokens)
 
 
 def test_prefill_cache_hit_identity_and_eviction(setup, monkeypatch):

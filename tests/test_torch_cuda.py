@@ -897,6 +897,27 @@ def test_free_slot_past_the_window_faults_nothing_on_the_card(cuda):
     assert win == base
 
 
+def test_prepared_engine_joins_every_group_size_without_a_capture(cuda):
+    """After ``prepare()`` at 8 slots, ``_prefills`` holds a join prefill of
+    every (group batch of ``join_batches``, prompt bucket), and groups of 1,
+    2, 3, 5 and 8 join at 1, 2, 4, 8 and 8 by replays only: ``graph_log``
+    does not grow."""
+    from paligemma_tpu_torch.continuous import ContinuousBatcher, join_batches
+
+    model, proc, images, prompts = _tiny_served(cuda)
+    eng = ContinuousBatcher(model, proc, n_slots=8, max_new_tokens=6, chunk=4)
+    eng.prepare()
+    assert sorted(eng._prefills) == [(b, t) for b in join_batches(8) for t in eng.prompt_budgets]
+    n = len(eng.graph_log)
+    for g in (1, 2, 3, 5, 8):
+        reqs = [eng.submit(prompts[i % 4], images[i % 4], max_new_tokens=2) for i in range(g)]
+        eng.run()
+        assert all(r.done and r.error is None for r in reqs)
+    eng.close()
+    assert len(eng.graph_log) == n
+    assert [(g_b, len(m)) for g_b, m in eng.join_log] == [(1, 1), (2, 2), (4, 3), (8, 5), (8, 8)]
+
+
 @pytest.mark.parametrize("kw", [{}, {"spec_k": 4, "kv_window": True}], ids=["plain", "spec_window"])
 def test_tiny_engine_gives_batch1_tokens(cuda, kw):
     """Each request's tokens are batch-1 ``generate``'s, up to a first

@@ -212,6 +212,14 @@ def test_metrics_endpoint(continuous_server):
     assert m1["spec_ks"] == [8] and m1["spec_adaptive"] is True and "kv_window" in m1
 
 
+def test_metrics_count_join_rows(continuous_server):
+    base = continuous_server
+    with _post(base, "/generate", {"prompt": "rows probe", "image_b64": _b64img(43), "max_tokens": 4}) as r:
+        r.read()
+    m = json.loads(urllib.request.urlopen(base + "/metrics").read())
+    assert m["join_rows"] >= m["join_groups"] >= 1 and 0 <= m["join_pad_rows"] < m["join_rows"]
+
+
 def test_admission_unit():
     adm = srv.Admission(depth=2)
     with adm.slot():
