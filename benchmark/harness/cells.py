@@ -4,8 +4,9 @@
   traffic names, and which metrics it reports.
 - ``benchmark/workloads/<cell>.json``: the engine's settings, the offered
   rate of an open loop, the sample and the limit of the output check.
-- ``benchmark/configs/<config>.json``: the model's sizes, its sources, how
-  it is served (weight format, dtypes) and its control format.
+- ``benchmark/configs/<config>.json``: the model's architecture
+  (``"arch"``, a module of ``benchmark/archs/``), sizes and sources, how it
+  is served (weight format, dtypes) and its control format.
 - ``benchmark/traffic/<mix>.json``: the mix's parameters, read by the one
   generator in ``traffic.py``.
 - ``benchmark/metrics/<metric>.py``: one reader a metric (``metrics.py``).
@@ -18,7 +19,10 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List
+
+import archs
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
@@ -43,6 +47,11 @@ class Cell:
     end_to_end: List[dict]  # the BENCHMARK.json metrics this cell reports
     per_layer: List[dict]
 
+    @property
+    def arch(self) -> ModuleType:
+        """The configuration's architecture (``archs/<arch>.py``)."""
+        return archs.load(self.config)
+
 
 def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
@@ -54,7 +63,7 @@ def load_cell(name: str, bench: dict = None) -> Cell:
     if name not in entries:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json (have {sorted(entries)})")
     w = entries[name]
-    return Cell(
+    cell = Cell(
         name=name,
         workload=w,
         settings=_load(BENCH_DIR / "workloads" / f"{name}.json"),
@@ -63,6 +72,8 @@ def load_cell(name: str, bench: dict = None) -> Cell:
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
     )
+    archs.load(cell.config)  # no architecture, or a missing one, is refused here
+    return cell
 
 
 def kernel_groups() -> Dict[str, List[List[str]]]:

@@ -2,7 +2,8 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the finished requests, drawn from the seed and holding the longest, goes
-through the plain reference (``reference/vlm.py``) with its served
+through the plain reference of the configuration's architecture
+(``archs/<arch>.py``'s ``reference``, over ``inputs``) with its served
 tokens, and each served token's gap is read: how far its logit lies below
 the reference's best at that position, in units of the row's standard
 deviation over the vocab. The number compared is the widest gap. With
@@ -10,10 +11,10 @@ random weights near-ties are common, and a correct program parts from the
 reference only where its rounding flips one; an error in the program
 parts at gaps that rounding cannot reach.
 
-The control (``control()``): the reference in the configuration's
-control format (the nearest lower precision) put in the program's place,
-read the same way: the reference's gap of the token the control puts
-first at each position of the same prompts and tokens.
+The control (``verdict``'s ``control``): the reference in the
+configuration's control format (the nearest lower precision) put in the
+program's place, read the same way: the reference's gap of the token the
+control puts first at each position of the same prompts and tokens.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+import archs
 from harness import traffic
-from reference import vlm
+from reference.numerics import gaps
 
 
 def sample(records, seed: int, check: dict) -> list:
@@ -48,26 +50,29 @@ def sample(records, seed: int, check: dict) -> list:
 
 
 def items(picked, config: dict, pool: np.ndarray, device) -> list:
-    v = config["vision"]
-    n_img = (v["image_size"] // v["patch_size"]) ** 2
-    return [(vlm.pixels(traffic.image(pool, r.spec), v["image_size"]).to(device),
-             vlm.token_ids(r.spec.prompt, n_img), np.asarray(r.req.tokens, np.int64)) for r in picked]
+    """(pixels, prompt ids, served tokens) of each picked request."""
+    arch = archs.load(config)
+    out = []
+    for r in picked:
+        pix, ids = arch.inputs(config, traffic.image(pool, r.spec), r.spec.prompt)
+        out.append((pix.to(device), ids, np.asarray(r.req.tokens, np.int64)))
+    return out
 
 
 def widest_gap(ref_logits: List[torch.Tensor], tokens: List[np.ndarray]) -> float:
-    return max(float(vlm.gaps(lg, torch.as_tensor(tok, device=lg.device)).max())
+    return max(float(gaps(lg, torch.as_tensor(tok, device=lg.device)).max())
                for lg, tok in zip(ref_logits, tokens))
 
 
 def verdict(W, config: dict, picked, pool: np.ndarray, device, control: Optional[str] = None) -> dict:
     """{"gap": the served tokens' widest gap, "tokens", "requests"}; with
     ``control`` (a weight format) also "control_gap"."""
+    arch = archs.load(config)
     its = items(picked, config, pool, device)
-    ref = vlm.Reference(W, config["vision"], config["text"], config["serve"]["weights"])
-    ref_logits = ref.served_logits(its)
+    ref_logits = arch.reference(W, config, config["serve"]["weights"]).served_logits(its)
     out = {"gap": widest_gap(ref_logits, [it[2] for it in its]),
            "tokens": int(sum(len(it[2]) for it in its)), "requests": len(its)}
     if control:
-        low = vlm.Reference(W, config["vision"], config["text"], control).served_logits(its)
+        low = arch.reference(W, config, control).served_logits(its)
         out["control_gap"] = widest_gap(ref_logits, [lg.argmax(-1).cpu().numpy() for lg in low])
     return out

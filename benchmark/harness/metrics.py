@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib.util
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -28,6 +29,10 @@ class Run:
     trace: Optional[Trace]
     setup_s: float
     peaks: dict
+
+    @property
+    def arch(self) -> ModuleType:
+        return self.cell.arch
 
     @property
     def vision(self) -> dict:

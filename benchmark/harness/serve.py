@@ -1,10 +1,11 @@
 """The system under test and the window that drives it.
 
-The model is the port's ``PaliGemma`` over the benchmark's weights
-(``weights.py``), quantized by the port's own ``quantize_params`` where the
-configuration serves int8. The engine is the port's ``ContinuousBatcher``,
-the engine behind ``server_torch.py --continuous``, built with the cell's
-settings; ``prepare()`` runs in set-up. In the window requests enter
+The model is the port's, built by the configuration's architecture
+(``archs/<arch>.py``'s ``build_model``) over the benchmark's weights
+(``weights.py``) in the configuration's serving format. The engine is the
+port's ``ContinuousBatcher``, the engine behind ``server_torch.py
+--continuous``, built with the cell's settings; ``prepare()`` runs in
+set-up. In the window requests enter
 through ``submit()`` from a thread of the harness's own (an open loop's at
 their scheduled times, a closed loop's as soon as the driving thread sees a
 caller's last request complete) and ``step()`` runs on the driving thread.
@@ -30,58 +31,22 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+import archs
 from harness import traffic
 
 IDLE_WAIT_S = 0.002
 FIRST_TOKEN_WAIT_S = 30.0  # at most, before a traced stretch: see LoadRunner.window
 
 
-def port_config(config: dict) -> dict:
-    """The configuration file's sizes as the port's ``config.json`` dict."""
-    v, t = config["vision"], config["text"]
-    return {
-        "pad_token_id": 0,
-        "projection_dim": t["hidden_size"],
-        "hidden_size": t["hidden_size"],
-        "vision_config": {k: v[k] for k in ("hidden_size", "intermediate_size", "num_attention_heads",
-                                            "num_hidden_layers", "patch_size", "image_size", "layer_norm_eps")},
-        "text_config": {k: t[k] for k in ("hidden_size", "intermediate_size", "num_attention_heads",
-                                          "num_key_value_heads", "head_dim", "num_hidden_layers", "vocab_size",
-                                          "max_position_embeddings", "rms_norm_eps", "rope_theta")},
-    }
-
-
 def build_model(config: dict, W: Dict[str, torch.Tensor]):
-    """(port model, processor): the port's modules over the tensors of
-    ``W`` (no copy), then the configuration's serving format."""
-    from paligemma_tpu_torch import quantization
-    from paligemma_tpu_torch.config import PaliGemmaConfig
-    from paligemma_tpu_torch.models.paligemma import PaliGemma
-    from paligemma_tpu_torch.processing import ByteTokenizer, PaliGemmaProcessor, align_config
-
-    cfg = PaliGemmaConfig.from_dict(port_config(config))
-    proc = PaliGemmaProcessor(ByteTokenizer(), cfg.vision_config.num_image_tokens, cfg.vision_config.image_size)
-    cfg = align_config(cfg, proc)
-    if cfg.text_config.vocab_size != config["text"]["vocab_size"]:
-        raise ValueError("the byte tokenizer's ids do not fit the configuration's vocab")
-    dtype = next(iter(W.values())).dtype
-    with torch.device("meta"):
-        model = PaliGemma(cfg, dtype)
-    model.load_state_dict(W, strict=True, assign=True)
-    model.requires_grad_(False)
-    fmt = config["serve"]["weights"]
-    if fmt == "int8":
-        model = quantization.quantize_params(model, mode="int8")
-    elif fmt != "bf16":
-        raise ValueError(f"unknown serving format {fmt!r}")
-    return model, proc
+    """(port model, processor) over the tensors of ``W``: the architecture's."""
+    return archs.load(config).build_model(config, W)
 
 
-def build_engine(model, proc, config: dict, settings: dict, seed: int):
+def build_engine(model, proc, config: dict, settings: dict, seed: int, n_img: int):
     from paligemma_tpu_torch.continuous import ContinuousBatcher
 
     e = settings["engine"]
-    n_img = model.cfg.vision_config.num_image_tokens
     return ContinuousBatcher(
         model, proc, n_slots=e["n_slots"], chunk=e["chunk"], prompt_budget=[n_img + e["text_bucket"]],
         max_new_tokens=e["max_new_tokens"], kv_window=e["kv_window"], prefetch=e["prefetch"],

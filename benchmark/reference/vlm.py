@@ -8,23 +8,25 @@ PaliGemma's prefix mask (the image and the prompt see each other, every
 later token sees what precedes it).
 
 It imports nothing of the program under test. It reads the weights that
-the benchmark made (``harness/weights.py``'s names), widened to float32 or
-first passed through a weight format of its own (``WEIGHT_FORMATS``):
-"int8" and "int4" are symmetric per-output-row integers, weight-only;
-"fp8" is per-row-scaled float8 e4m3 for the weights and for the rows of
-activations that enter the decoder's products. Products run with TF32 off. Each request runs over its
+the benchmark made (``archs/paligemma.py``'s names), widened to float32 or
+first passed through a weight format of its own (``numerics.py``'s
+``WEIGHT_FORMATS``). Products run with TF32 off. Each request runs over its
 whole sequence without a cache; the decoder runs layer by layer over all
 the requests of a check, each layer's weights prepared once.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from PIL import Image
+
+# The formats, the float32 switch and the gap are every architecture's;
+# they are read here as ``vlm.<name>`` too.
+from reference.numerics import ACTIVATION_FORMATS, WEIGHT_FORMATS, gaps, no_tf32  # noqa: F401
 
 # The byte tokenizer's ids: bytes 0..255, then <pad>, <bos>, <eos>, <image>.
 BOS_ID = 257
@@ -42,39 +44,6 @@ def pixels(image: Image.Image, size: int) -> torch.Tensor:
     arr = (arr * (1 / 255.0)).astype(np.float32)
     arr = (arr - np.float32(0.5)) / np.float32(0.5)
     return torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)))
-
-
-def _symmetric(w: torch.Tensor, qmax: float) -> torch.Tensor:
-    scale = w.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / qmax
-    return torch.round(w / scale).clamp(-qmax, qmax) * scale
-
-
-def _fp8(w: torch.Tensor) -> torch.Tensor:
-    scale = w.abs().amax(dim=1, keepdim=True).clamp_min(1e-8) / 448.0
-    return (w / scale).to(torch.float8_e4m3fn).float() * scale
-
-
-WEIGHT_FORMATS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "bf16": lambda w: w,
-    "int8": lambda w: _symmetric(w, 127.0),
-    "int4": lambda w: _symmetric(w, 7.0),
-    "fp8": _fp8,
-}
-# Formats whose products also take their activations in them: the rows
-# going into each decoder projection and the lm_head, per-row scaled.
-ACTIVATION_FORMATS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {"fp8": _fp8}
-
-
-class no_tf32:
-    """float32 products in float32 (cuBLAS and cuDNN may otherwise take TF32)."""
-
-    def __enter__(self):
-        self.saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-    def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
 
 
 class Reference:
@@ -178,11 +147,3 @@ class Reference:
         with no_tf32():
             out = self.logits(seqs)
         return [lg[p - 1:] for lg, (_, _, p) in zip(out, seqs)]
-
-
-def gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """(n,) how far each token's logit lies below the best of its row, in
-    units of the row's standard deviation over the vocab."""
-    best = logits.max(-1).values
-    mine = logits.gather(-1, tokens[:, None].long())[:, 0]
-    return (best - mine) / logits.std(-1)

@@ -104,7 +104,7 @@ def set_up(cell, seed: int, device, stages: Stages):
         _build.load_library()
     stages("kernels")
     cfg = cell.config
-    W = weights.make_weights(cfg["vision"], cfg["text"], seed, device)
+    W = weights.make_weights(cfg, seed, device)
     _sync(device)
     stages("weights")
     model, proc = serve.build_model(cfg, W)
@@ -113,12 +113,13 @@ def set_up(cell, seed: int, device, stages: Stages):
     stages("model")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    engine = serve.build_engine(model, proc, cfg, cell.settings, seed)
+    n_img = cell.arch.n_image_tokens(cfg)
+    engine = serve.build_engine(model, proc, cfg, cell.settings, seed, n_img)
     stages("engine")
     engine.prepare()
     stages("prepare")
     pool = traffic.noise_pool(seed)
-    serve.warm_up(engine, cell.traffic, seed + 7, pool, model.cfg.vision_config.num_image_tokens)
+    serve.warm_up(engine, cell.traffic, seed + 7, pool, n_img)
     _sync(device)
     stages("warm_up")
     return model, engine, pool
@@ -142,7 +143,7 @@ def serve_window(cell, engine, model, pool, seed: int, seconds: float, tracer=No
         import torch
 
         annotate = torch.profiler.record_function
-    n_img = model.cfg.vision_config.num_image_tokens
+    n_img = cell.arch.n_image_tokens(cell.config)
     load = serve.LoadRunner(engine, cell.traffic, make_specs(cell, seed, seconds), pool, n_img, annotate)
     window = load.window(seconds, tracer)
     window["drain_s"] = load.drain(cell.settings["drain_s"])
@@ -214,7 +215,7 @@ def run_cell(cell, seed: int, seconds: float, trace: int, device, t_start: float
     del engine, model, load
     serve.free()
     t_check = time.perf_counter()
-    W = weights.make_weights(cell.config["vision"], cell.config["text"], seed, device)
+    W = weights.make_weights(cell.config, seed, device)
     verdict = check.verdict(W, cell.config, picked, pool, device) if picked else {"gap": None}
     del W
     log(f"check: {verdict} in {time.perf_counter() - t_check:.3f} s")
@@ -250,7 +251,7 @@ def calibrate(cell, seed: int, n: int, seconds: float, device, t_start: float) -
     limit = cell.settings["check"]["limit"]
     rows = []
     for s in range(seed, seed + n):
-        W = weights.make_weights(cfg["vision"], cfg["text"], s, device)
+        W = weights.make_weights(cfg, s, device)
         fresh, _ = serve.build_model(cfg, dict(W))
         with torch.no_grad():
             mine = model.state_dict()

@@ -33,7 +33,7 @@ def _request(seed: int):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_inputs_match_the_port_processor(layout):
     config = _config(layout, "bf16")
-    W = weights.make_weights(config["vision"], config["text"], 3, "cpu", torch.float32)
+    W = weights.make_weights(config, 3, "cpu", torch.float32)
     model, proc = serve.build_model(config, W)
     spec, img = _request(4)
     out = proc(text=[spec.prompt], images=[img])
@@ -49,7 +49,7 @@ def test_reference_matches_the_port(layout, fmt):
     from paligemma_tpu_torch.ops.kernels import PLAIN
 
     config = _config(layout, fmt)
-    W = weights.make_weights(config["vision"], config["text"], 11, "cpu", torch.float32)
+    W = weights.make_weights(config, 11, "cpu", torch.float32)
     model, proc = serve.build_model(config, dict(W))
     spec, img = _request(12)
     out = proc(text=[spec.prompt], images=[img])
@@ -86,7 +86,7 @@ def test_int8_weights_match_the_port_quantization(layout):
     from paligemma_tpu_torch.quantization import dequantize
 
     config = _config(layout, "int8")
-    W = weights.make_weights(config["vision"], config["text"], 5, "cpu", torch.float32)
+    W = weights.make_weights(config, 5, "cpu", torch.float32)
     model, _ = serve.build_model(config, dict(W))
     pairs = [(model.llm.embed, W["llm.embed"])]
     for i, layer in enumerate(model.llm.layers):
